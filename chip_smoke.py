@@ -8,23 +8,44 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
 0. Card identity (``nvidia-smi``), torch/CUDA versions; TF32 off, so the
    port computes in f32 as the JAX package does off the TPU.
-1. Build the greedy-NMS kernel from ``face_crop_plus_tpu_torch/csrc`` and
-   print ``ptxas -v`` (registers, shared memory, spills).
-2. Kernel vs plain on the card: N = 16, K in {168, 256, 512, 1024}, random,
-   identical, all-invalid, near-threshold, NaN/inf and the detector's own
-   top-K boxes at 1024²; keep masks must be bitwise equal.  Times on the
-   detector's boxes at each K (profiler device time of the kernel, CUDA
-   events around the wrapper call and around the plain version, after
-   warm-up), beside the bound.
-3. The slice at full width: ``Cropper(device="cuda", output_size=256,
-   resize_size=1024, strategy="largest", det_threshold=-1.0,
-   batch_size=16)`` with seeded random-init RetinaFace ResNet-50, driven by
-   ``process_images`` on seeded 16×218×178×3 uint8 batches; the kernel's
-   launch count must rise on every request.  Faces/s, the stage split and
-   peak memory are printed, and one profiled request's kernel time by name.
-   Then a small-input reference check: the same slice on the card and on
-   the CPU (plain path) at a 128² interim with tamed weights must give
-   equal indices and crops within ±1.
+1. Build the kernels from ``face_crop_plus_tpu_torch/csrc`` (greedy NMS
+   and the warp/gather source, one ``nvcc`` each, in parallel) and print
+   ``ptxas -v`` (registers, shared memory, spills).
+2. NMS kernel vs plain on the card: N = 16, K in {168, 256, 512, 1024},
+   random, identical, all-invalid, near-threshold, NaN/inf and the
+   detector's own top-K boxes at 1024²; keep masks must be bitwise equal.
+   Times on the detector's boxes at each K (profiler device time of the
+   kernel, CUDA events around the wrapper call and around the plain
+   version, after warm-up), beside the bound.
+2b. Warp kernel vs plain on the card: all 5 border modes × {no windows,
+   per-face windows}, at F = 16 and F = 512 faces from 16×218×178 sources
+   (a "largest" request; one strategy-"all" chunk) and F = 512 faces from
+   16×1024² uint8 interim sources (the interim window), seeded random
+   similarity transforms, some sampling far outside, and NaN/inf matrix
+   rows (must not fault; not compared).  The largest uint8 difference
+   must be ≤ 1.  Times at each shape (profiler device time,
+   wrapper call, plain version, bound from bytes, and ``F.grid_sample`` as
+   the library yardstick for constant without windows).
+   Then ``gather2d`` (the TPU probe's own function) on the probe's 10
+   cases, bitwise equal to ``torch.gather``, timed at 256×256.
+3. The "largest" slice at full width: ``Cropper(device="cuda",
+   output_size=256, resize_size=1024, strategy="largest",
+   det_threshold=-1.0, batch_size=16)`` with seeded random-init RetinaFace
+   ResNet-50, driven by ``process_images`` on seeded 16×218×178×3 uint8
+   batches; the NMS and warp kernels must launch on every request.
+   Faces/s, the stage split and peak memory are printed, and one profiled
+   request's kernel time by name.
+3b. Strategy "all" at full width, same settings: one warm-up and 3 timed
+   requests (faces, crop chunks, launches, grown caps per request; faces/s,
+   peak memory, stage split, top kernels); both kernels must launch on
+   every request.  One chunk of a later request, with the detector's own
+   fit matrices, is held against the plain warp on the same tensors.
+   Then one "all" request with ``crop_source="interim"``
+   and one "largest" request with ``crop_source="interim"``.
+   Reference check: small inputs on the card and on the CPU (plain path) at
+   a 128² interim with tamed weights — "largest" and "all" with
+   ``crop_source="interim"`` and ``padding="reflect"`` — must give equal
+   indices and crops within ±1.
 4. The ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
@@ -40,6 +61,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -263,6 +285,207 @@ def phase2_kernel_vs_plain(cropper, images, ks, n, device, clock, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the warp kernel and gather2d
+# ---------------------------------------------------------------------------
+
+BORDER_MODES = ("constant", "replicate", "reflect", "wrap", "reflect_101")
+
+
+def warp_inputs(rng, n, h, w, f, out_size, window=None):
+    """Seeded uint8 sources and F similarity transforms, faces spread evenly.
+
+    Transforms map a face center (some well outside the source or window)
+    to the crop center at 0.3-4 crop px per source px.  Every 37th matrix
+    is NaN and every 41st has an inf translation (degenerate fits).
+    ``window`` (top, left, height, width) tiles one window over all faces;
+    otherwise per-face windows are random inside the source.
+    """
+    images = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    img_idx = (np.arange(f) // max(f // n, 1)).clip(max=n - 1).astype(np.int32)
+    s = rng.uniform(0.3, 4.0, f)
+    ang = rng.uniform(-np.pi, np.pi, f)
+    cx = rng.uniform(-0.5 * w, 1.5 * w, f)
+    cy = rng.uniform(-0.5 * h, 1.5 * h, f)
+    a, b = s * np.cos(ang), s * np.sin(ang)
+    c = out_size / 2.0
+    m = np.stack([np.stack([a, -b, c - (a * cx - b * cy)], -1),
+                  np.stack([b, a, c - (b * cx + a * cy)], -1)], 1).astype(np.float32)
+    m[::37] = np.nan
+    m[5::41, 0, 2] = np.inf
+    if window is not None:
+        win = np.tile(np.asarray(window, np.int32), (f, 1))
+    else:
+        top = rng.integers(0, h // 4, f)
+        left = rng.integers(0, w // 4, f)
+        win = np.stack([top, left, rng.integers(1, h - top + 1), rng.integers(1, w - left + 1)],
+                       -1).astype(np.int32)
+    return images, m, img_idx, win
+
+
+def _finite_rows(m: torch.Tensor) -> torch.Tensor:
+    return torch.isfinite(m.reshape(len(m), -1)).all(dim=1)
+
+
+def warp_bound(images, m, idx, out_size, mode, win):
+    """(bytes, bound ms) of one warp call: crops written, inputs read once.
+
+    Source bytes count the pixels these crops need (nonzero bilinear weight
+    in a finite row), found as the nonzero gradient of the plain warp.
+    """
+    from face_crop_plus_tpu_torch.ops.warp import warp_affine_batch
+
+    ok = _finite_rows(m)
+    src = images.to(torch.float32).requires_grad_(True)
+    out = warp_affine_batch(src, m[ok], idx[ok], (out_size, out_size), mode,
+                            None if win is None else win[ok])
+    out.sum().backward()
+    touched = int((src.grad != 0).any(dim=-1).sum())
+    f = len(m)
+    nbytes = f * out_size * out_size * 3 + 3 * touched + f * (24 + 4) + (0 if win is None else 16 * f)
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def grid_sample_ms(images, m, idx, out_size, clock):
+    """``F.grid_sample`` (bilinear, zeros, align_corners) of the same crops.
+
+    The library yardstick for constant without windows: a float NCHW copy
+    of the sources and a precomputed grid with each image's faces stacked
+    along the height; only the call is timed.  Also returns the largest
+    difference of its rounded output from the kernel's (finite rows).
+    """
+    import torch.nn.functional as F
+
+    from face_crop_plus_tpu_torch.ops.cuda.warp import warp_affine_u8
+    from face_crop_plus_tpu_torch.ops.transform import invert_affine
+    from face_crop_plus_tpu_torch.ops.warp import _source_coords, to_uint8
+
+    n, h, w, _ = images.shape
+    f = len(m)
+    per = f // n
+    sx, sy = _source_coords(invert_affine(m), (out_size, out_size))
+    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0, sy * (2.0 / (h - 1)) - 1.0], -1)
+    grid = grid.reshape(n, per * out_size, out_size, 2).contiguous()
+    inp = images.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    call = lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                 align_corners=True)
+    ms = clock.ms(call, reps=20)
+    lib = to_uint8(call().permute(0, 2, 3, 1).reshape(f, out_size, out_size, 3))
+    ours = warp_affine_u8(images, m, idx, (out_size, out_size), "constant")
+    ok = _finite_rows(m)
+    diff = int((lib[ok].int() - ours[ok].int()).abs().max())
+    return ms, diff
+
+
+def phase2b_warp(device, clock, card, rehearse):
+    """The warp kernel vs its plain version, and its times; see the docstring."""
+    from face_crop_plus_tpu_torch.ops.cuda import warp as kern
+    from face_crop_plus_tpu_torch.ops.warp import to_uint8, warp_affine_batch
+
+    rng = np.random.default_rng(21)
+    if rehearse:
+        shapes = {"F=4 largest": (2, 40, 30, 4, 32, None),
+                  "F=8 all": (2, 40, 30, 8, 32, None),
+                  "F=8 interim": (2, 64, 64, 8, 32, (0, 8, 64, 48))}
+    else:
+        shapes = {"F=16 largest": (16, 218, 178, 16, 256, None),
+                  "F=512 all": (16, 218, 178, 512, 256, None),
+                  "F=512 interim": (16, 1024, 1024, 512, 256, (0, 94, 1024, 836))}
+    max_err, timings = 0, {}
+    for label, (n, h, w, f, out, window) in shapes.items():
+        images, m, idx, win = (torch.from_numpy(a).to(device)
+                               for a in warp_inputs(rng, n, h, w, f, out, window))
+        ok = _finite_rows(m)
+        log(f"  {label}: {n}x{h}x{w}x3 uint8 sources → {f} crops of {out}², "
+            f"{int((~ok).sum())} NaN/inf matrix rows excluded from the comparison")
+        for mode in BORDER_MODES:
+            for wins in (None, win):
+                ours = kern.warp_affine_u8(images, m, idx, (out, out), mode, wins)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()  # a fault shows here
+                plain = to_uint8(warp_affine_batch(images, m, idx, (out, out), mode, wins))
+                d = (ours[ok].int() - plain[ok].int()).abs()
+                err = int(d.max())
+                max_err = max(max_err, err)
+                log(f"    {mode:11s} windows={'yes' if wins is not None else 'no ':3s} "
+                    f"max |diff| {err}, differing share {float((d > 0).float().mean()):.9f}, "
+                    f"bitwise_equal={err == 0}")
+                if err > 1:
+                    raise SystemExit(f"FAIL: warp kernel differs from plain by {err} ({label}, {mode})")
+        for mode, wins in (("replicate", None), ("constant", win), ("constant", None)):
+            key = f"{mode}{'+windows' if wins is not None else ''}"
+            call = lambda: kern.warp_affine_u8(images, m, idx, (out, out), mode, wins)  # noqa: E731,B023
+            call_ms = clock.ms(call, reps=20)
+            plain_ms = clock.ms(lambda: to_uint8(warp_affine_batch(  # noqa: B023
+                images, m, idx, (out, out), mode, wins)), reps=3, warmup=1)
+            kernel_ms, source = call_ms, "CUDA events around the wrapper call"
+            if device.type == "cuda":
+                rows = [r for r in device_kernels(call, reps=20) if "warp_affine" in r[0]]
+                if rows:
+                    kernel_ms, source = rows[0][1] / 20 / 1e3, "profiler device time"
+            nbytes, bound_ms = warp_bound(images, m, idx, out, mode, wins)
+            t = dict(ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bytes=nbytes, library_ms=None, f=f, out=out)
+            extra = ""
+            if mode == "constant" and wins is None and device.type == "cuda":
+                t["library_ms"], lib_diff = grid_sample_ms(images, m, idx, out, clock)
+                extra = (f", F.grid_sample {t['library_ms']:.6f} ms (rounded output within "
+                         f"{lib_diff} of the kernel's)")
+            timings[(label, key)] = t
+            log(f"    [{card}] {label} {key}: kernel {kernel_ms:.6f} ms ({source}), wrapper "
+                f"call {call_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
+                f"(bytes: {nbytes} B){extra}")
+        del images, m, idx, win
+    return max_err, timings
+
+
+#: The TPU probe's cases (tools/mosaic_gather_probe.py:58-64): (h, w, axis).
+PROBE_CASES = [
+    (8, 128, 0), (8, 256, 0), (8, 512, 0), (16, 128, 0), (64, 128, 0), (256, 256, 0),
+    (8, 128, 1), (8, 256, 1), (16, 256, 1), (256, 256, 1),
+]
+
+
+def phase_gather2d(device, clock, card):
+    """gather2d vs torch.gather on the probe's cases; times at 256×256."""
+    from face_crop_plus_tpu_torch.ops.cuda import warp as kern
+
+    rng = np.random.default_rng(22)
+    timings = {}
+    for h, w, axis in PROBE_CASES:
+        hi = h if axis == 0 else w
+        idx = torch.from_numpy(rng.integers(0, hi, (h, w)).astype(np.int32)).to(device)
+        src = torch.from_numpy(rng.random((h, w)).astype(np.float32)).to(device)
+        ours = kern.gather2d(src, idx, axis)
+        ref = torch.gather(src, axis, idx.long())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        equal = torch.equal(ours, ref)
+        log(f"  gather2d {h}x{w} axis {axis}: bitwise_equal={equal}")
+        if not equal:
+            raise SystemExit(f"FAIL: gather2d != torch.gather at {h}x{w} axis {axis}")
+        if (h, w) == (256, 256):
+            call = lambda: kern.gather2d(src, idx, axis)  # noqa: E731,B023
+            call_ms = clock.ms(call, reps=50)
+            lib_ms = clock.ms(lambda: torch.gather(src, axis, idx.long()), reps=50)  # noqa: B023
+            kernel_ms = call_ms
+            if device.type == "cuda":
+                rows = [r for r in device_kernels(call, reps=50) if "gather2d" in r[0]]
+                if rows:
+                    kernel_ms = rows[0][1] / 50 / 1e3
+            distinct = len(torch.unique(idx.long() * w + torch.arange(w, device=device)
+                                        if axis == 0 else
+                                        torch.arange(h, device=device)[:, None] * w + idx.long()))
+            nbytes = 4 * h * w * 2 + 4 * distinct
+            timings[axis] = dict(ms=kernel_ms, call_ms=call_ms, plain_ms=lib_ms,
+                                 library_ms=lib_ms, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                                 bytes=nbytes)
+            log(f"  [{card}] gather2d 256x256 axis {axis}: kernel {kernel_ms:.6f} ms, wrapper "
+                f"call {call_ms:.6f} ms, torch.gather {lib_ms:.6f} ms, bound "
+                f"{timings[axis]['bound_ms']:.6f} ms ({nbytes} B)")
+    return timings
+
+
+# ---------------------------------------------------------------------------
 # Phase 3
 # ---------------------------------------------------------------------------
 
@@ -284,28 +507,278 @@ def tamed_state_dict(net, seed: int = 1):
     return out
 
 
+def smooth_batch(rng, shape, cell=8):
+    """Smooth, photo-like uint8 images: a coarse random grid, upsampled.
+
+    The strategy "all" check crops every candidate of a random detector,
+    some minified 20-50× so that they sample far outside the image; on
+    per-pixel noise the f32 rounding of the network (cuDNN vs CPU) moves
+    such samples by more than a level, on smooth images it does not.
+    """
+    n, h, w, c = shape
+    coarse = rng.uniform(0, 255, (n, c, h // cell + 2, w // cell + 2)).astype(np.float32)
+    up = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse), size=(h, w), mode="bilinear", align_corners=False
+    )
+    return np.clip(np.rint(up.permute(0, 2, 3, 1).numpy()), 0, 255).astype(np.uint8)
+
+
+def match_faces(lm_a, lm_b, idx):
+    """Per image, the face of ``b`` nearest each face of ``a`` by landmarks.
+
+    Returns (order, distance): ``b[order]`` lines up with ``a``; distance is
+    the largest landmark difference (px) of a matched pair.  Raises when
+    the nearest faces do not form a one-to-one matching.
+    """
+    order = np.empty(len(idx), np.int64)
+    for img in np.unique(idx):
+        rows = np.nonzero(idx == img)[0]
+        d = np.abs(lm_a[rows][:, None] - lm_b[rows][None]).reshape(len(rows), len(rows), -1)
+        near = d.max(-1).argmin(1)
+        if len(set(near.tolist())) != len(rows):
+            raise SystemExit(f"FAIL: faces of image {img} do not match one to one")
+        order[rows] = rows[near]
+    return order, float(np.abs(lm_a - lm_b[order]).max()) if len(idx) else 0.0
+
+
 def reference_check(device):
-    """The slice on ``device`` vs on the CPU (plain path), small input."""
+    """The slice on ``device`` vs on the CPU (plain path), small inputs.
+
+    Strategy "all" returns an image's faces in score order, and the f32
+    rounding of the network (cuDNN vs CPU) can swap two faces of nearly
+    equal score; its faces are matched by landmarks before the crops are
+    compared, and the largest landmark difference is printed in both
+    orders.
+    """
     from face_crop_plus_tpu_torch import Cropper
 
-    kw = dict(output_size=64, resize_size=128, strategy="largest",
-              padding="replicate", det_threshold=-1.0, batch_size=4)
-    a = Cropper(device=device, **kw)
-    b = Cropper(device="cpu", **kw)
-    sd = tamed_state_dict(b.det_model.net)
-    a.det_model.net.load_state_dict(sd)
-    b.det_model.net.load_state_dict(sd)
-    batch = np.random.default_rng(3).integers(0, 256, (4, 96, 80, 3), dtype=np.uint8)
-    ca, ia, _ = a.process_images(batch)
-    cb, ib, _ = b.process_images(batch)
-    if not np.array_equal(ia, ib):
-        raise SystemExit(f"FAIL: reference check indices {ia} != {ib}")
-    diff = int(np.abs(ca.astype(np.int16) - cb.astype(np.int16)).max()) if len(ca) else 0
-    log(f"  reference check ({device} vs cpu, 128² interim, tamed weights): "
-        f"indices {ia.tolist()}, crop max |diff| {diff}, "
-        f"pre_topk {a.det_model.pre_topk}/{b.det_model.pre_topk}")
-    if diff > 1 or ca.shape != cb.shape or a.det_model.pre_topk != b.det_model.pre_topk:
-        raise SystemExit("FAIL: reference check crops differ by more than 1 level")
+    rng = np.random.default_rng(3)
+    cases = [
+        (dict(strategy="largest", padding="replicate"),
+         rng.integers(0, 256, (4, 96, 80, 3), dtype=np.uint8)),
+        (dict(strategy="all", padding="reflect", crop_source="interim"),
+         smooth_batch(rng, (4, 96, 80, 3))),
+    ]
+    for extra, batch in cases:
+        kw = dict(output_size=64, resize_size=128, det_threshold=-1.0, batch_size=4, **extra)
+        a = Cropper(device=device, **kw)
+        b = Cropper(device="cpu", **kw)
+        sd = tamed_state_dict(b.det_model.net)
+        a.det_model.net.load_state_dict(sd)
+        b.det_model.net.load_state_dict(sd)
+        ca, la, ia = a._fused.process(batch, a.resize_size)
+        cb, lb, ib = b._fused.process(batch, b.resize_size)
+        if not np.array_equal(ia, ib) or ca.shape != cb.shape:
+            raise SystemExit(f"FAIL: reference check {extra} indices {ia} != {ib}")
+        in_order = float(np.abs(la - lb).max()) if len(ia) else 0.0
+        order, matched = match_faces(la, lb, ia)
+        moved = int((order != np.arange(len(order))).sum())
+        diff = int(np.abs(ca.astype(np.int16) - cb[order].astype(np.int16)).max()) if len(ca) else 0
+        caps = ((a.det_model.pre_topk, a.det_model.max_faces),
+                (b.det_model.pre_topk, b.det_model.max_faces))
+        log(f"  reference check {extra} ({device} vs cpu, 128² interim, tamed weights): "
+            f"{len(ia)} faces, per image {np.bincount(ia, minlength=4).tolist()}; landmark "
+            f"max |diff| {in_order:.6g} px in order, {matched:.6g} px matched ({moved} faces "
+            f"in another rank); crop max |diff| {diff} (matched); (pre_topk, max_faces) "
+            f"{caps[0]}/{caps[1]}")
+        if diff > 1 or matched > 1e-2 or caps[0] != caps[1]:
+            raise SystemExit("FAIL: reference check crops differ by more than 1 level")
+
+
+def check_chunk(args, kwargs) -> int:
+    """A recorded warp call on the main path, kernel vs plain on its tensors.
+
+    Returns the largest uint8 difference over the rows with finite
+    matrices; fails above 1.
+    """
+    from face_crop_plus_tpu_torch.ops.cuda import warp as kern
+    from face_crop_plus_tpu_torch.ops.warp import to_uint8, warp_affine_batch
+
+    images, mats, img_idx = args[:3]
+    ours = kern.warp_affine_u8(*args, **kwargs)
+    plain = to_uint8(warp_affine_batch(*args, **kwargs))
+    ok = _finite_rows(mats)
+    d = (ours[ok].int() - plain[ok].int()).abs()
+    err = int(d.max()) if len(d) else 0
+    log(f"  main-path chunk: {len(mats)} crops from {tuple(images.shape)} sources, "
+        f"{int((~ok).sum())} non-finite fits excluded; kernel vs plain max |diff| {err}, "
+        f"differing share {float((d > 0).float().mean()) if len(d) else 0.0:.9f}, "
+        f"bitwise_equal={err == 0}")
+    if err > 1:
+        raise SystemExit(f"FAIL: main-path warp chunk differs from plain by {err}")
+    return err
+
+
+def phase3b_all(Cropper, device, card, n, src_hw, resize, out_size, deadline, rehearse):
+    """Strategy "all" at full width.
+
+    Returns (K1 launches, warp launches, the largest warp difference of
+    the recorded chunk).
+    """
+    from face_crop_plus_tpu_torch import pipeline
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+
+    kw = dict(device=str(device), output_size=out_size, resize_size=resize,
+              det_threshold=-1.0, batch_size=n)
+    cropper = Cropper(strategy="all", **kw)
+    det = cropper.det_model
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(0, 256, (n, *src_hw, 3), dtype=np.uint8) for _ in range(6)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    faces, seconds, per_request = [], [], []
+    for r, batch in enumerate(batches[:4]):
+        if r >= 2 and time.monotonic() > deadline:
+            log(f"  time budget: stopping after {r} requests")
+            break
+        b_nms, b_warp = nms_kern.launches, warp_kern.launches
+        t0 = time.perf_counter()
+        crops, indices, groups = cropper.process_images(batch)
+        seconds.append(time.perf_counter() - t0)
+        d_nms, d_warp = nms_kern.launches - b_nms, warp_kern.launches - b_warp
+        per_request.append((d_nms, d_warp))
+        faces.append(len(indices))
+        if (crops.shape != (len(indices), out_size, out_size, 3) or crops.dtype != np.uint8
+                or groups != (None, None) or (len(indices) and not (
+                    np.all(np.diff(indices) >= 0) and 0 <= indices[0] and indices[-1] < n))):
+            raise SystemExit(f"FAIL: 'all' request {r}: crops {crops.shape} {crops.dtype}")
+        log(f"  request {r}: F={len(indices)} faces (per image min "
+            f"{np.bincount(indices, minlength=n).min()}, max "
+            f"{np.bincount(indices, minlength=n).max()}), crop chunks {d_warp}, K1 launches "
+            f"{d_nms}, warp launches {d_warp}, pre_topk {det.pre_topk}, max_faces "
+            f"{det.max_faces}, {seconds[-1]:.6f} s")
+        del crops
+    launches = (nms_kern.launches, warp_kern.launches)
+    if not rehearse and min(min(p) for p in per_request) < 1:
+        raise SystemExit("FAIL: a kernel did not launch on every strategy-'all' request")
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    timed = seconds[1:]
+    log(f"  [{card}] {sum(faces[1:]) / sum(timed):.6f} faces/s over {len(timed)} requests "
+        f"after one warm-up ({sum(faces[1:])} faces, {sum(timed):.6f} s; request seconds "
+        + ", ".join(f"{s:.6f}" for s in seconds) + ")")
+    log(f"  [{card}] peak device memory {peak} B ({peak / 2**30:.6f} GiB)")
+
+    timer = StageTimer(device)
+    cropper._fused.stage_timer = timer
+    recorded = []
+    real_warp = pipeline.warp_affine_u8
+
+    def recording_warp(*args, **kwargs):
+        if not recorded:
+            recorded.append((args, kwargs))
+        return real_warp(*args, **kwargs)
+
+    pipeline.warp_affine_u8 = recording_warp
+    try:
+        t0 = time.perf_counter()
+        cropper.process_images(batches[4])
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        pipeline.warp_affine_u8 = real_warp
+    cropper._fused.stage_timer = None
+    split = ", ".join(f"{k} {timer.ms.get(k, 0.0):.6f}" for k in cropper._fused.STAGES)
+    log(f"  [{card}] stage split (ms, synchronised host clocks; fit_warp and to_host "
+        f"summed over the chunks): {split}; request {total:.6f}")
+    chunk_err = check_chunk(*recorded[0])
+    del recorded
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        rows = device_kernels(lambda: cropper.process_images(batches[5]), reps=1)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        busy = sum(r[1] for r in rows)
+        log(f"  [{card}] profiled request: device kernel time {busy:.3f} us of "
+            f"{wall_us:.3f} us wall (profiler on); busy share {busy / wall_us:.6f}; "
+            f"{sum(r[2] for r in rows)} kernel launches; top kernels:")
+        for name, us, count in rows[:8]:
+            log(f"    {us:12.3f} us  x{count:4d}  {name[:110]}")
+    del cropper
+
+    for strategy in ("all", "largest"):
+        c = Cropper(strategy=strategy, crop_source="interim", **kw)
+        before = warp_kern.launches
+        t0 = time.perf_counter()
+        crops, indices, _ = c.process_images(batches[1])
+        sec = time.perf_counter() - t0
+        ok = crops.dtype == np.uint8 and crops.shape == (len(indices), out_size, out_size, 3)
+        log(f"  {strategy!r} with crop_source='interim': F={len(indices)} crops "
+            f"{crops.shape} {crops.dtype}, warp launches {warp_kern.launches - before}, "
+            f"{sec:.6f} s (first request: caps grow)")
+        if not ok or (not rehearse and warp_kern.launches == before):
+            raise SystemExit(f"FAIL: {strategy!r} interim request: {crops.shape} {crops.dtype}")
+        del c, crops
+    return (*launches, chunk_err)
+
+
+#: f32 operations per output pixel of the warp (coordinates, floor and
+#: fraction, four weights, 3 channels of 4 products and 3 sums, rounding).
+WARP_OPS_PER_PIXEL = 48
+
+
+def _rows(timings: dict) -> dict:
+    return {f"{label} {key}": {k: t[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                                    "library_ms")}
+            for (label, key), t in timings.items()}
+
+
+def warp_row(wtimings, max_err, launches_largest, launches_all) -> dict:
+    """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
+
+    One strategy-"all" chunk: 512 faces from the 16 original sources,
+    constant border, no windows; the other shapes are under ``cases``.
+    """
+    label = next(lab for lab, _ in wtimings if lab.endswith(" all"))
+    t = wtimings[(label, "constant")]
+    f, out = t["f"], t["out"]
+    t_ops = WARP_OPS_PER_PIXEL * f * out * out / PEAK_F32_FLOPS * 1e3
+    return {
+        "name": "warp_affine_u8",
+        "route": "cuda",
+        "source": "face_crop_plus_tpu_torch/csrc/warp.cu",
+        "replaces": "tools/mosaic_gather_probe.py:40",
+        "launches": launches_largest + launches_all,
+        "launches_largest": launches_largest,
+        "launches_all": launches_all,
+        "max_abs_err": max_err,
+        "bitwise_equal": max_err == 0,
+        "ms": t["ms"],
+        "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": max(t["bound_ms"], t_ops),
+        "bound_by": "bytes" if t["bound_ms"] >= t_ops else "operations",
+        "library_ms": t["library_ms"],
+        "shape": f"{label}: {f} crops of {out}² from the original uint8 sources, constant, "
+                 "no windows",
+        "cases": _rows(wtimings),
+    }
+
+
+def gather_row(gtimings, launches) -> dict:
+    """The ``kernels`` entry of gather2d (256×256, axis 0; axis 1 beside)."""
+    t, t1 = gtimings[0], gtimings[1]
+    return {
+        "name": "gather2d",
+        "route": "cuda",
+        "source": "face_crop_plus_tpu_torch/csrc/warp.cu",
+        "replaces": "tools/mosaic_gather_probe.py:40",
+        "launches": launches,
+        "launches_from": "its own check phase: not on the main path",
+        "max_abs_err": 0.0,
+        "bitwise_equal": True,
+        "ms": t["ms"],
+        "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["library_ms"],
+        "shape": "256x256 f32, axis 0",
+        "ms_axis1": t1["ms"],
+        "library_ms_axis1": t1["library_ms"],
+        "bound_ms_axis1": t1["bound_ms"],
+    }
 
 
 def main() -> int:
@@ -330,6 +803,10 @@ def main() -> int:
     from face_crop_plus_tpu_torch import Cropper
     from face_crop_plus_tpu_torch.ops.cuda import build
     from face_crop_plus_tpu_torch.ops.cuda import nms as kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+
+    # Cut phase 3b's timed requests, never its width, past this point.
+    deadline = time.monotonic() + 780.0
 
     device = torch.device("cpu" if rehearse else "cuda")
     clock = Clock(device)
@@ -348,13 +825,17 @@ def main() -> int:
         log("phase 1: build skipped (rehearsal: no nvcc)")
     else:
         t0 = time.perf_counter()
-        build.load_library("nms.cu")
-        info = build.build_info["nms.cu"]
-        log(f"phase 1: built csrc/nms.cu in {time.perf_counter() - t0:.3f} s "
-            f"(nvcc {info['seconds']:.3f} s)")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log("  ptxas: " + line.strip())
+        sources = ("nms.cu", "warp.cu")
+        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source at once
+            list(pool.map(build.load_library, sources))
+        log(f"phase 1: built csrc/{{{','.join(sources)}}} in parallel in "
+            f"{time.perf_counter() - t0:.3f} s")
+        for source in sources:
+            info = build.build_info[source]
+            log(f"  csrc/{source}: nvcc {info['seconds']:.3f} s")
+            for line in info["log"].splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log("  ptxas: " + line.strip())
 
     # -- models ------------------------------------------------------------
     if rehearse:
@@ -375,6 +856,15 @@ def main() -> int:
     max_err, timings = phase2_kernel_vs_plain(cropper, images0, ks, n, device, clock, card)
     del images0
 
+    # -- phase 2b ----------------------------------------------------------
+    log("phase 2b: warp kernel vs plain, 5 border modes x {no windows, windows}")
+    warp_err, wtimings = phase2b_warp(device, clock, card, rehearse)
+    warp_kern.gather2d_launches = 0
+    gtimings = phase_gather2d(device, clock, card)
+    gather_launches = warp_kern.gather2d_launches
+    if not rehearse and gather_launches == 0:
+        raise SystemExit("FAIL: the gather2d kernel did not launch")
+
     # -- phase 3 -----------------------------------------------------------
     log(f"phase 3: process_images, {n}x{src_hw[0]}x{src_hw[1]}x3 → {resize}² "
         f"RetinaFace ResNet-50 → {out_size}² crops")
@@ -386,27 +876,32 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     kern.launches = 0
+    warp_kern.launches = 0
     per_request = []
+    warp_per_request = []
     seconds = []
     faces = []
     for r, batch in enumerate(batches[:5]):
         before = kern.launches
+        before_warp = warp_kern.launches
         t0 = time.perf_counter()
         crops, indices, groups = cropper.process_images(batch)
         seconds.append(time.perf_counter() - t0)
         per_request.append(kern.launches - before)
+        warp_per_request.append(warp_kern.launches - before_warp)
         faces.append(len(indices))
         if crops.shape != (n, out_size, out_size, 3) or crops.dtype != np.uint8:
             raise SystemExit(f"FAIL: request {r}: crops {crops.shape} {crops.dtype}")
         if not np.array_equal(indices, np.arange(n)) or groups != (None, None):
             raise SystemExit(f"FAIL: request {r}: indices {indices}")
     main_launches = kern.launches
+    warp_main_launches = warp_kern.launches
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
-    log(f"  K1 launches per request {per_request} (pre_topk now "
-        f"{cropper.det_model.pre_topk}); request seconds "
+    log(f"  K1 launches per request {per_request}, warp launches per request "
+        f"{warp_per_request} (pre_topk now {cropper.det_model.pre_topk}); request seconds "
         + ", ".join(f"{s:.6f}" for s in seconds))
-    if not rehearse and (main_launches == 0 or min(per_request) < 1):
-        raise SystemExit("FAIL: the NMS kernel did not launch on every request")
+    if not rehearse and (min(per_request) < 1 or min(warp_per_request) < 1):
+        raise SystemExit("FAIL: the NMS or warp kernel did not launch on every request")
     timed = seconds[1:]
     fps = sum(faces[1:]) / sum(timed)
     log(f"  [{card}] {fps:.6f} faces/s over {len(timed)} requests after one "
@@ -433,6 +928,13 @@ def main() -> int:
             f"{sum(r[2] for r in rows)} kernel launches; top kernels:")
         for name, us, count in rows[:8]:
             log(f"    {us:12.3f} us  x{count:4d}  {name[:110]}")
+    del cropper
+
+    # -- phase 3b ----------------------------------------------------------
+    log(f"phase 3b: strategy 'all', {n}x{src_hw[0]}x{src_hw[1]}x3 → {resize}² "
+        f"RetinaFace ResNet-50 → {out_size}² crops of every kept face")
+    all_nms, all_warp, chunk_err = phase3b_all(Cropper, device, card, n, src_hw, resize, out_size,
+                                    deadline, rehearse)
 
     reference_check(device)
 
@@ -444,7 +946,9 @@ def main() -> int:
         "route": "cuda",
         "source": "face_crop_plus_tpu_torch/csrc/nms.cu",
         "replaces": "face_crop_plus_tpu/ops/pallas/nms_kernel.py:28",
-        "launches": main_launches,
+        "launches": main_launches + all_nms,
+        "launches_largest": main_launches,
+        "launches_all": all_nms,
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -457,7 +961,8 @@ def main() -> int:
         "ms_k256": t_256["ms"],
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
-    }]}
+    }, warp_row(wtimings, max(warp_err, chunk_err), warp_main_launches, all_warp),
+        gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:
         log("rehearsal finished: every phase ran on the CPU; no ok line")

@@ -3,10 +3,12 @@
 Counterpart of ``face_crop_plus_tpu.cropper.Cropper`` with the same
 constructor surface.  Ported so far: the detection configuration and the
 in-memory serving entry point :meth:`Cropper.process_images` for a uniform
-uint8 batch, with strategies "best"/"largest".  Everything else raises
+uint8 batch, with strategies "best"/"largest" (single dispatch) and "all"
+(detect-only pass, host compaction, chunked crops of the kept faces), and
+``crop_source`` "original" or "interim".  Everything else raises
 ``NotImplementedError`` naming the missing path: landmark-file and
-landmark-free modes, strategy "all", ragged batches, enhancement, parsing,
-meshes, ``crop_source="interim"`` and the directory pipeline.
+landmark-free modes, ragged batches, enhancement, parsing, meshes and the
+directory pipeline.
 
 The JAX package's compile cache, accelerator prewarm and fused-shape budget
 (``max_fused_shapes``) manage XLA programs; eager PyTorch has none, so the
@@ -99,6 +101,7 @@ class Cropper:
             output_size=self.output_size,
             border_mode=self.padding,
             allow_skew=self.allow_skew,
+            crop_source=self.crop_source,
         )
 
     def _check_ported(self):
@@ -106,16 +109,12 @@ class Cropper:
         missing = []
         if self.landmarks is not None or self.det_threshold is None:
             missing.append("landmark-file and landmark-free modes")
-        if self.strategy not in ("best", "largest"):
-            missing.append(f"strategy {self.strategy!r}")
         if self.enh_threshold is not None:
             missing.append("enhancement")
         if self.attr_groups is not None or self.mask_groups is not None:
             missing.append("parsing")
         if self.mesh is not None:
             missing.append("meshes")
-        if self.crop_source != "original":
-            missing.append(f"crop_source={self.crop_source!r}")
         if missing:
             raise NotImplementedError(
                 "face_crop_plus_tpu_torch does not port these paths yet: "

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_source_locks: dict[str, threading.Lock] = {}
 #: Per source: {"seconds": build time (0.0 when reused), "log": nvcc output}.
 build_info: dict[str, dict] = {}
 
@@ -48,8 +49,14 @@ def _nvcc() -> str:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Builds ``csrc/<source>`` if needed and returns the loaded library."""
+    """Builds ``csrc/<source>`` if needed and returns the loaded library.
+
+    Calls for different sources may run at once from several threads (one
+    ``nvcc`` each); calls for the same source wait for one build.
+    """
     with _lock:
+        lock = _source_locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _libs:
             return _libs[source]
         src_path = os.path.join(CSRC_DIR, source)

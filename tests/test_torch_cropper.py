@@ -16,26 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-import face_crop_plus_tpu
 import face_crop_plus_tpu_torch
-from face_crop_plus_tpu_torch.models.weights import from_jax_params
 
-from torch_parity import jax_params, tamed_params
+from torch_parity import cropper_pair
 
 
 def _pair(monkeypatch, **kw):
-    # The JAX Cropper warps on the host by default when its native kernel is
-    # built; the port reproduces the device warp.
     monkeypatch.setenv("FCPT_HOST_CROP", "0")
-    p = tamed_params()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        j = face_crop_plus_tpu.Cropper(device="cpu", **kw)
-        t = face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
-    j.det_model.params = jax_params(p)
-    net = t.det_model.net
-    net.load_state_dict(from_jax_params(p, net), strict=True)
-    return j, t
+    return cropper_pair(**kw)
 
 
 @pytest.mark.parametrize(
@@ -75,11 +63,11 @@ def test_default_device_raises_without_cuda():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(strategy="all"),
+        dict(landmarks="lm.txt"),
         dict(enh_threshold=0.01),
         dict(attr_groups={"g": [1]}),
         dict(det_threshold=None),
-        dict(crop_source="interim"),
+        dict(mesh=object()),
     ],
 )
 def test_unported_paths_raise(kw):
@@ -100,7 +88,7 @@ def test_ragged_batch_raises():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, face_crop_plus_tpu_torch, face_crop_plus_tpu_torch.pipeline\n"
-        "import face_crop_plus_tpu_torch.ops.cuda.nms\n"
+        "import face_crop_plus_tpu_torch.ops.cuda.nms, face_crop_plus_tpu_torch.ops.cuda.warp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m.startswith('face_crop_plus_tpu.')"
         " or m == 'face_crop_plus_tpu']\n"

@@ -67,6 +67,30 @@ def jax_params(params: dict[str, np.ndarray]):
     return {k: jnp.asarray(v) for k, v in params.items()}
 
 
+def cropper_pair(**kw):
+    """A JAX ``Cropper`` and a port ``Cropper`` on the CPU, same tamed weights.
+
+    The caller sets ``FCPT_HOST_CROP=0`` first: by default the JAX Cropper
+    warps on the host when its native kernel is built, and the port
+    reproduces the device warp.
+    """
+    import warnings
+
+    import face_crop_plus_tpu
+    import face_crop_plus_tpu_torch
+    from face_crop_plus_tpu_torch.models.weights import from_jax_params
+
+    p = tamed_params()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        j = face_crop_plus_tpu.Cropper(device="cpu", **kw)
+        t = face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
+    j.det_model.params = jax_params(p)
+    net = t.det_model.net
+    net.load_state_dict(from_jax_params(p, net), strict=True)
+    return j, t
+
+
 def sorted_boxes(rng, n: int, k: int, lo: float = 0.0, hi: float = 80.0):
     """(n, k, 4) random corner boxes and score-style (n, k) validity."""
     scores = np.sort(rng.uniform(0, 1, (n, k)).astype(np.float32))[:, ::-1]
