@@ -82,6 +82,8 @@ def greedy_nms_mask_cuda(
         )
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("boxes and valid must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must start on a 16-byte boundary (one float4 per box)")
     n, k = valid.shape
     if k > MAX_K:
         raise ValueError(f"K = {k} exceeds the kernel's limit of {MAX_K}")
@@ -89,7 +91,9 @@ def greedy_nms_mask_cuda(
     if n == 0 or k == 0:
         return keep
     words = (k + 63) // 64
-    mask = torch.empty((n, k, words), dtype=torch.int64, device=boxes.device)
+    # Rows padded to 64 per word: every 64-row strip of an image's mask is a
+    # 16-byte aligned block of 512 * words bytes, as the scan's bulk copies need.
+    mask = torch.empty((n, 64 * words, words), dtype=torch.int64, device=boxes.device)
     lib, fn = _kernel()
     with torch.cuda.device(boxes.device):
         err = fn(

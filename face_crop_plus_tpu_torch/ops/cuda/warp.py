@@ -22,7 +22,6 @@ import ctypes
 
 import torch
 
-from ..transform import invert_affine
 from ..warp import BORDER_MODES, to_uint8, warp_affine_batch
 from .build import load_library
 
@@ -37,7 +36,7 @@ def _lib():
     if lib.fcpt_warp_affine_u8.argtypes is None:
         lib.fcpt_warp_affine_u8.argtypes = [
             ctypes.c_void_p,  # src
-            ctypes.c_void_p,  # inverse matrices
+            ctypes.c_void_p,  # forward matrices
             ctypes.c_void_p,  # img_idx
             ctypes.c_void_p,  # windows (or None)
             ctypes.c_void_p,  # out
@@ -80,7 +79,7 @@ def _check_device(tensors: dict[str, torch.Tensor]) -> torch.device:
             + ", ".join(f"{k} on {t.device}" for k, t in tensors.items())
         )
     for name, t in tensors.items():
-        # The matrices reach the kernel through a fresh inverse.
+        # The wrapper hands the kernel a contiguous copy of the matrices.
         if name != "matrices" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return dev
@@ -105,8 +104,8 @@ def warp_affine_u8(
     Args:
         images: uint8 (N, H, W, 3) sources.
         matrices: float32 (F, 2, 3) forward transforms (source → crop), as
-            for :func:`..warp.warp_affine_batch`; inverted here with the
-            plain :func:`..transform.invert_affine`.
+            for :func:`..warp.warp_affine_batch`; on CUDA the kernel inverts
+            them as :func:`..transform.invert_affine` does, bit for bit.
         img_idx: int32 (F,) source image of each face.
         output_size: Crop (width, height).
         border_mode: One of :data:`..warp.BORDER_MODES`.
@@ -152,15 +151,17 @@ def warp_affine_u8(
         )
     n, h, w, _ = images.shape
     wo, ho = output_size
+    if h * w * 3 >= 2**31 or ho * wo * 3 >= 2**31:
+        raise ValueError("one source image and one crop must each hold fewer than 2^31 bytes")
     out = torch.empty((f, ho, wo, 3), dtype=torch.uint8, device=dev)
     if f == 0 or n == 0 or h == 0 or w == 0 or ho == 0 or wo == 0:
         return out.zero_()
-    inv = invert_affine(matrices).contiguous()
+    mats = matrices.contiguous()
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.fcpt_warp_affine_u8(
             images.data_ptr(),
-            inv.data_ptr(),
+            mats.data_ptr(),
             img_idx.data_ptr(),
             None if windows is None else windows.data_ptr(),
             out.data_ptr(),

@@ -2,7 +2,8 @@
 
 The port's plain NMS is held against the JAX package's XLA path
 (``greedy_nms_mask(iou_matrix_plus1(b), ...)``) and its Pallas kernel in
-interpret mode.  Tolerance: exact — keep masks, IoU matrices, top-K
+interpret mode; numpy models of the CUDA kernel's pair test and word-by-word
+scan are held against both.  Tolerance: exact — keep masks, IoU matrices, top-K
 indices, selections, validity and cap diagnostics are discrete results or
 the same f32 operations in the same order on identical inputs.
 """
@@ -184,8 +185,98 @@ def test_top_candidates_tie_order_is_lower_index_first():
     assert valid.all() and n_above.tolist() == [6]
 
 
+# ---------------------------------------------------------------------------
+# numpy models of the CUDA kernel's two passes (csrc/nms.cu)
+# ---------------------------------------------------------------------------
+
+
+def _max_c(v, c):
+    """The kernel's NaN-propagating max(v, c) for a constant c: v < c ? c : v."""
+    return np.where(v < c, c, v)
+
+
+def _kernel_pair_gt(boxes, thr=THR):
+    """The mask pass's pair test, IoU(i, j) > thr, for (K, 4) f32 boxes.
+
+    NaN-dropping fmax/fmin where the reference propagates NaN, and a
+    NaN-propagating max only for the union: every NaN the reference's IoU
+    would carry also makes an area NaN, and the union carries that.
+    """
+    with np.errstate(all="ignore"):
+        x1, y1, x2, y2 = (boxes[:, c] for c in range(4))
+        one = np.float32(1.0)
+        area = ((x2 - x1) + one) * ((y2 - y1) + one)
+        ix1 = np.fmax(x1[:, None], x1[None])
+        iy1 = np.fmax(y1[:, None], y1[None])
+        ix2 = np.fmin(x2[:, None], x2[None])
+        iy2 = np.fmin(y2[:, None], y2[None])
+        iw = np.fmax((ix2 - ix1) + one, np.float32(0.0))
+        ih = np.fmax((iy2 - iy1) + one, np.float32(0.0))
+        inter = iw * ih
+        uni = _max_c((area[:, None] + area[None]) - inter, np.float32(1e-12))
+        return inter / uni > np.float32(thr)
+
+
+def _packed_mask(gt):
+    """(K, W) uint64 words, bit b of word w set when j = 64w + b > i and gt."""
+    k = gt.shape[0]
+    words = (k + 63) // 64
+    upper = np.zeros((k, 64 * words), bool)
+    upper[:, :k] = np.triu(gt, 1)
+    return np.packbits(upper, axis=1, bitorder="little").view("<u8")
+
+
+def _word_scan(mask, valid):
+    """The scan pass, word by word, over one image's packed mask."""
+    k = len(valid)
+    words = mask.shape[1]
+    bits = np.zeros(64 * words, bool)
+    bits[:k] = valid
+    vwords = [int(x) for x in np.packbits(bits, bitorder="little").view("<u8")]
+    removed = [0] * words
+    kept = [0] * words
+    for w in range(words):
+        alive = vwords[w] & ~removed[w]
+        for b in range(min(64, k - 64 * w)):  # greedy inside the word
+            if (alive >> b) & 1:
+                alive &= ~int(mask[64 * w + b, w])
+        kept[w] = alive
+        for b in (b for b in range(64) if (alive >> b) & 1):
+            for lane in range(w + 1, words):
+                removed[lane] |= int(mask[64 * w + b, lane])
+    return np.array([(kept[j >> 6] >> (j & 63)) & 1 for j in range(k)], bool)
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 256, 1000, 1024])
+@pytest.mark.parametrize("case", CASES)
+def test_word_scan_model_matches_greedy(case, k):
+    boxes, valid = _make(case, np.random.default_rng(k + 2), 2, k)
+    iou = tnms.iou_matrix_plus1(torch.from_numpy(boxes)).numpy()
+    ours = np.stack([
+        _word_scan(_packed_mask(iou[b] > np.float32(THR)), valid[b]) for b in range(len(boxes))
+    ])
+    np.testing.assert_array_equal(ours, _port_keep(boxes, valid))
+    np.testing.assert_array_equal(ours, _jax_xla_keep(boxes, valid))
+
+
+def _overflow_boxes(rng, n, k):
+    # Finite coordinates whose widths and areas overflow to inf (inf * 0
+    # and inf - inf arise inside the IoU), mixed with infinities.
+    vals = np.array([-3e38, -1.0, 0.0, 1.0, 2.0, 3e38, np.inf, -np.inf], np.float32)
+    return rng.choice(vals, (n, k, 4)), np.ones((n, k), bool)
+
+
+@pytest.mark.parametrize("case", CASES + ["overflow"])
+def test_kernel_pair_test_model_matches_iou(case):
+    rng = np.random.default_rng(11)
+    boxes, _ = (_overflow_boxes(rng, 2, 200) if case == "overflow" else _make(case, rng, 2, 200))
+    iou = tnms.iou_matrix_plus1(torch.from_numpy(boxes)).numpy()
+    for b in range(len(boxes)):
+        np.testing.assert_array_equal(_kernel_pair_gt(boxes[b]), iou[b] > np.float32(THR))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [168, 256, 512, 1024])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 168, 256, 512, 1000, 1024])
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_matches_plain_on_gpu(case, k):
     if not torch.cuda.is_available():

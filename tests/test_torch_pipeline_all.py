@@ -27,7 +27,7 @@ The warp kernel's wrapper (``ops/cuda/warp.py``) runs its plain version on
 CPU tensors, which must equal ``to_uint8(warp_affine_batch(...))`` exactly;
 ``gather2d`` must equal the TPU probe's Pallas kernel in interpret mode.
 The ``gpu``-marked tests hold the kernels against their plain versions on a
-card and skip here.
+card, bitwise, and skip here.
 """
 
 import warnings
@@ -44,6 +44,7 @@ import face_crop_plus_tpu_torch
 from face_crop_plus_tpu.ops import warp as jwarp
 from face_crop_plus_tpu_torch.ops import warp as twarp
 from face_crop_plus_tpu_torch.ops.cuda import warp as cuda_warp
+from face_crop_plus_tpu_torch.ops.transform import invert_affine
 from face_crop_plus_tpu_torch.pipeline import device_resize_pad
 
 from torch_parity import cropper_pair
@@ -293,6 +294,37 @@ def test_interim_uint8_source_is_lossless():
         assert torch.equal(a, b)
 
 
+def test_kernel_inverse_model_matches_invert_affine():
+    # The warp kernel inverts each face's matrix itself (csrc/warp.cu:
+    # load_face): every operation in f32 and rounded on its own, the
+    # |det| < 1e-12 test in f32 and the sign-preserving epsilon.  A numpy
+    # model of those steps must equal the plain invert_affine bit for bit.
+    rng = np.random.default_rng(15)
+    m = rng.normal(size=(64, 2, 3)).astype(np.float32)
+    m = _edge_matrices(m)
+    m[10, :, :2] = [[1e-12, 0.0], [0.0, 1.0]]  # det exactly f32(1e-12)
+    m[11, :, :2] = [[-1e-12, 0.0], [0.0, 1.0]]
+    m[12, :, :2] = 0.0
+    m[13, :, :2] = -0.0
+    m[14] = np.nan
+    m[15, 0, 2] = np.inf
+    m[16, 1, 1] = np.inf
+    with np.errstate(all="ignore"):
+        a, b, tx = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
+        c, d, ty = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
+        det = a * d - b * c
+        eps = np.where(det < 0, np.float32(-1e-12), np.float32(1e-12))
+        det = np.where(np.abs(det) < np.float32(1e-12), eps, det)
+        ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+        model = np.stack([np.stack([ia, ib, -(ia * tx + ib * ty)], -1),
+                          np.stack([ic, id_, -(ic * tx + id_ * ty)], -1)], 1)
+    ref = invert_affine(torch.from_numpy(m)).numpy()
+    assert model.dtype == ref.dtype == np.float32
+    nan = np.isnan(ref)  # a NaN's sign bit depends on the operation that made it
+    np.testing.assert_array_equal(np.isnan(model), nan)
+    np.testing.assert_array_equal(model.view(np.int32)[~nan], ref.view(np.int32)[~nan])
+
+
 def test_warp_wrapper_rejects_float_source():
     images, m, idx, _ = _torch_args(*_warp_inputs(np.random.default_rng(13), False))
     with pytest.raises(TypeError):
@@ -371,8 +403,48 @@ def test_warp_kernel_matches_plain_on_gpu(mode, windows):
     assert cuda_warp.launches == before + 1
     plain = twarp.to_uint8(twarp.warp_affine_batch(*args, (96, 112), mode, w_t))
     rows = torch.from_numpy(_finite_rows(m)).to(dev)
-    diff = (ours[rows].int() - plain[rows].int()).abs()
-    assert int(diff.max()) <= 1
+    assert torch.equal(ours[rows], plain[rows])
+
+
+def _edge_matrices(m):
+    """Near-singular (|det| below, at and above 1e-12) and mirrored fits."""
+    m[1, :, :2] = [[1e-6, 0.0], [0.0, 1e-6]]
+    m[2, :, :2] = [[1e-6, 0.0], [0.0, -1e-6]]
+    m[3, :, :2] = [[2e-6, 1e-6], [4e-6, 2.0000002e-6]]
+    m[4, :, :2] = [[3e-7, 0.0], [0.0, 3e-7]]
+    m[6::3, 0, :2] *= -1.0
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windows", [False, True])
+@pytest.mark.parametrize("mode", twarp.BORDER_MODES)
+def test_warp_kernel_odd_size_singular_mirrored_on_gpu(mode, windows):
+    # 61x97 crops: tiles whose bytes start off a 16-byte boundary.
+    dev = _cuda()
+    rng = np.random.default_rng(70 + 2 * twarp.BORDER_MODES.index(mode) + windows)
+    images, m, idx, win = _warp_inputs(rng, windows, n=4, h=218, w=178, f=64)
+    m = _edge_matrices(m)
+    args = [torch.from_numpy(a).to(dev) for a in (images, m, idx)]
+    w_t = None if win is None else torch.from_numpy(win).to(dev)
+    ours = cuda_warp.warp_affine_u8(*args, (61, 97), mode, w_t)
+    plain = twarp.to_uint8(twarp.warp_affine_batch(*args, (61, 97), mode, w_t))
+    rows = torch.from_numpy(_finite_rows(m)).to(dev)
+    assert rows.all() and torch.equal(ours[rows], plain[rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windows", [False, True])
+def test_warp_kernel_faces_past_grid_rows_on_gpu(windows):
+    # 70,000 faces: more than the grid's 65,535 rows, so blocks loop.
+    dev = _cuda()
+    images, m, idx, win = _warp_inputs(np.random.default_rng(90 + windows), windows,
+                                       n=4, h=64, w=64, f=70000)
+    args = [torch.from_numpy(a).to(dev) for a in (images, m, idx)]
+    w_t = None if win is None else torch.from_numpy(win).to(dev)
+    mode = "reflect" if windows else "constant"
+    ours = cuda_warp.warp_affine_u8(*args, (8, 8), mode, w_t)
+    assert torch.equal(ours, twarp.to_uint8(twarp.warp_affine_batch(*args, (8, 8), mode, w_t)))
 
 
 @pytest.mark.gpu
