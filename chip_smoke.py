@@ -6,8 +6,11 @@
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
-0. Card identity (``nvidia-smi``), torch/CUDA versions; TF32 off, so the
-   port computes in f32 as the JAX package does off the TPU.
+0. Card identity (``nvidia-smi``), torch/CUDA versions, the precision the
+   package pins for its detector (f32: TF32 off inside the package only;
+   the script sets no global flag), and the host codecs: whether the
+   native JPEG decoder built (else the compiler's message), cv2's and
+   PIL's versions.
 1. Build the kernels from ``face_crop_plus_tpu_torch/csrc`` (greedy NMS
    and the warp/gather source, one ``nvcc`` each, in parallel) and print
    ``ptxas -v`` (registers, shared memory, spills).
@@ -52,10 +55,26 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``crop_source="interim"`` and ``padding="reflect"`` — must give equal
    indices and crops within ±1 (the network's f32 sums differ between
    cuDNN and the CPU).
-4. The ``kernels`` JSON line, the card line, and the ``ok`` line last.
+5. The directory pipeline at full width, on a directory written with the
+   port's own ``imwrite``: 256 JPEGs of 218×178 (the fused path), 8 JPEGs
+   of other sizes (one above 2× the interim) and a PNG (the staged path),
+   and a corrupt file (warns, skipped); tamed seeded weights written as the
+   ``retinaface.npz`` both packages read; 1024² interim, 256² crops, batch
+   16, ``det_threshold`` 0.  (a) ``python -m face_crop_plus_tpu_torch`` as
+   a subprocess: names exact, every crop 256×256×3.  (b) ``process_dir``
+   "largest" with ``num_processes`` 1 and 4: a warm-up, then two timed
+   passes each (faces/s, ``Cropper.stats`` split, K1 and warp launches;
+   the staged ones must be > 0); the 4-thread tree equals the 1-thread
+   tree byte for byte; one staged warp call (windows on the host interim)
+   bitwise equal to the plain warp.  (c) strategy "all" (at most 4 faces
+   an image), one pass.  (d) card vs CPU on 4 fused + 4 staged images,
+   PNG: names equal, pixels within ±1.
+4. The ``kernels`` JSON line (phase 5's launches beside the others), the
+   card line, and the ``ok`` line last.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
-versions (no build, no launch counts) and exits 3 without an ``ok`` line.
+versions (no build, no launch counts; phase 5's CLI with ``-d cpu``) and
+exits 3 without an ``ok`` line.
 """
 
 from __future__ import annotations
@@ -64,9 +83,11 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -650,7 +671,7 @@ def reference_check(device):
             raise SystemExit("FAIL: reference check crops differ by more than 1 level")
 
 
-def check_chunk(args, kwargs) -> int:
+def check_chunk(args, kwargs, label: str = "main-path chunk") -> int:
     """A recorded warp call on the main path, kernel vs plain on its tensors.
 
     Returns the largest uint8 difference over the rows with finite
@@ -665,12 +686,12 @@ def check_chunk(args, kwargs) -> int:
     ok = _finite_rows(mats)
     d = (ours[ok].int() - plain[ok].int()).abs()
     err = int(d.max()) if len(d) else 0
-    log(f"  main-path chunk: {len(mats)} crops from {tuple(images.shape)} sources, "
+    log(f"  {label}: {len(mats)} crops from {tuple(images.shape)} sources, "
         f"{int((~ok).sum())} non-finite fits excluded; kernel vs plain max |diff| {err}, "
         f"differing share {float((d > 0).float().mean()) if len(d) else 0.0:.9f}, "
         f"bitwise_equal={err == 0}")
     if err > 0:
-        raise SystemExit(f"FAIL: main-path warp chunk differs from plain by {err}")
+        raise SystemExit(f"FAIL: {label}: warp kernel differs from plain by {err}")
     return err
 
 
@@ -778,6 +799,310 @@ def phase3b_all(Cropper, device, card, n, src_hw, resize, out_size, deadline, re
     return (*launches, chunk_err)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the directory pipeline
+# ---------------------------------------------------------------------------
+
+
+def photo_like(rng, h, w):
+    """Smooth uint8 (h, w, 3) content with mild noise, JPEG-compressible."""
+    coarse = rng.uniform(0, 255, (1, 3, h // 16 + 2, w // 16 + 2)).astype(np.float32)
+    up = torch.nn.functional.interpolate(torch.from_numpy(coarse), size=(h, w),
+                                         mode="bilinear", align_corners=False)
+    img = up[0].permute(1, 2, 0).numpy() + rng.normal(0, 4, (h, w, 3))
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def write_directory(path, n_uniform, uniform_hw, ragged_hw, seed=5):
+    """The phase-5 input directory, written with the port's own ``imwrite``.
+
+    ``n_uniform`` JPEGs of ``uniform_hw`` (the fused group), one JPEG per
+    ``ragged_hw`` entry, one PNG and one corrupt file; the single-shape
+    files are spread through the sorted listing, so most file batches mix
+    the fused and the staged path.  Returns the readable file names.
+    """
+    from face_crop_plus_tpu_torch.utils.io import imwrite
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(path)
+    readable = []
+    for i in range(n_uniform):
+        readable.append(f"img_{i:04d}.jpg")
+        imwrite(os.path.join(path, readable[-1]), photo_like(rng, *uniform_hw))
+    step = max(1, n_uniform // (len(ragged_hw) + 2))
+    for k, hw in enumerate(ragged_hw):
+        readable.append(f"img_{k * step:04d}_r.jpg")
+        imwrite(os.path.join(path, readable[-1]), photo_like(rng, *hw))
+    k = len(ragged_hw)
+    readable.append(f"img_{k * step:04d}_p.png")
+    imwrite(os.path.join(path, readable[-1]), photo_like(rng, 97, 131))
+    with open(os.path.join(path, f"img_{(k + 1) * step:04d}_z.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0 corrupt")
+    return sorted(readable)
+
+
+def write_npz(path, net, seed=1):
+    """Tamed seeded weights as the ``retinaface.npz`` both packages read
+    (JAX layout: HWIO conv kernels, folded BN)."""
+    os.makedirs(path, exist_ok=True)
+    arrays = {}
+    for key, val in tamed_state_dict(net, seed).items():
+        val = val.numpy()
+        arrays[key] = np.transpose(val, (2, 3, 1, 0)) if val.ndim == 4 else val
+    np.savez(os.path.join(path, "retinaface.npz"), **arrays)
+
+
+def check_tree(out_dir, expected, out_size, what):
+    """Names exactly ``expected``; every file decodes to out_size² × 3."""
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+
+    got = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if got != sorted(expected):
+        missing, extra = sorted(set(expected) - set(got)), sorted(set(got) - set(expected))
+        raise SystemExit(f"FAIL: {what}: {len(got)} files, expected {len(expected)}; "
+                         f"missing {missing[:5]}, unexpected {extra[:5]}")
+    for name in got:
+        img = imread_rgb(os.path.join(out_dir, name))
+        if img is None or img.shape != (out_size, out_size, 3):
+            raise SystemExit(f"FAIL: {what}: {name} decodes to "
+                             f"{None if img is None else img.shape}")
+
+
+def tree_diff(dir_a, dir_b) -> tuple[int, int]:
+    """(files whose bytes differ, largest decoded pixel difference) of two
+    trees with the same names; (-1, -1) when the names differ."""
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+
+    names = sorted(os.listdir(dir_a))
+    if names != sorted(os.listdir(dir_b)):
+        return -1, -1
+    files, pixels = 0, 0
+    for n in names:
+        pa, pb = os.path.join(dir_a, n), os.path.join(dir_b, n)
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() == fb.read():
+                continue
+        files += 1
+        pixels = max(pixels, int(np.abs(imread_rgb(pa).astype(np.int16)
+                                        - imread_rgb(pb).astype(np.int16)).max()))
+    return files, pixels
+
+
+def fused_batch_sizes(cropper, src, names, sizes, card):
+    """Fused ``process`` of n same-shape images for each n: ms a batch and an
+    image (CUDA events around the call, after a warm-up call), beside the
+    Cropper's own call, which pads the group to ``batch_size``, and the top
+    device kernels of one call at the first two sizes."""
+    from face_crop_plus_tpu_torch.utils.io import read_images
+
+    images, _ = read_images(names[: max(sizes)], src)
+    batch = np.stack(images)
+    device = cropper._device
+    clock = Clock(device)
+    for n in sizes:
+        call = lambda: cropper._fused.process(batch[:n], cropper.resize_size)  # noqa: E731,B023
+        ms = clock.ms(call, reps=3, warmup=1)
+        padded = ""
+        if n < cropper.batch_size:
+            pad_ms = clock.ms(lambda: cropper._fused_process(batch[:n]), reps=3,  # noqa: B023
+                              warmup=1)
+            padded = f"; padded to {cropper.batch_size} (the Cropper's call) {pad_ms:.6f} ms"
+        log(f"  [{card}] (e) fused process of {n} images: {ms:.6f} ms a batch, "
+            f"{ms / n:.6f} ms an image{padded}")
+        if device.type == "cuda" and n in sizes[:2]:
+            rows = device_kernels(call, reps=1)
+            log(f"    {sum(r[1] for r in rows):.3f} us device time, {sum(r[2] for r in rows)} "
+                "launches; top kernels:")
+            for name, us, count in rows[:5]:
+                log(f"    {us:12.3f} us  x{count:4d}  {name[:110]}")
+
+
+def phase5_directory(device, card, rehearse):
+    """The directory pipeline at full width; see the module docstring.
+
+    Returns (K1 launches, warp launches) of the timed "largest" passes and
+    the "all" pass, the largest staged-warp difference from plain, and the
+    timings for the kernels line.
+    """
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch import cropper as cropper_mod
+    from face_crop_plus_tpu_torch.models.detection import RetinaFaceNet
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.utils.io import codecs, imread_rgb
+    from face_crop_plus_tpu_torch.utils.profiling import PipelineStats
+
+    if rehearse:
+        n_uni, uni_hw, resize, out, bs = 12, (40, 30), 64, 32, 4
+        ragged = [(160, 130), (50, 70), (33, 45), (64, 48), (20, 28), (90, 60), (70, 70), (25, 40)]
+    else:
+        n_uni, uni_hw, resize, out, bs = 256, (218, 178), 1024, 256, 16
+        ragged = [(2400, 1800), (480, 640), (1080, 1920), (333, 500), (1024, 768),
+                  (90, 120), (1500, 1000), (600, 600)]
+    work = os.path.join(ROOT, "face_crop_plus_tpu_torch", "_build", "phase5")
+    shutil.rmtree(work, ignore_errors=True)
+    src, wdir = os.path.join(work, "in"), os.path.join(work, "weights")
+    t0 = time.perf_counter()
+    readable = write_directory(src, n_uni, uni_hw, ragged)
+    log(f"  input: {len(os.listdir(src))} files ({n_uni} JPEGs of {uni_hw[0]}x{uni_hw[1]}, "
+        f"{len(ragged)} JPEGs of other sizes up to {max(max(hw) for hw in ragged)} px, one PNG, "
+        f"one corrupt) written in {time.perf_counter() - t0:.3f} s; interim {resize}², crops "
+        f"{out}², batch {bs}; codecs {json.dumps(codecs())[:400]}")
+    kw = dict(output_size=out, resize_size=resize, det_threshold=0.0, batch_size=bs,
+              weights_dir=wdir)
+
+    # (a) the CLI, in a process of its own.  -dt 0 keeps every candidate of
+    # the tamed detector (a negative threshold switches detection off).
+    write_npz(wdir, RetinaFaceNet())
+    cli_out = os.path.join(work, "cli")
+    cmd = [sys.executable, "-m", "face_crop_plus_tpu_torch", "-i", src, "-o", cli_out,
+           "-r", str(resize), "-s", str(out), "-dt", "0", "-b", str(bs), "-w", wdir]
+    if rehearse:
+        cmd += ["-d", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"FAIL: the CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    check_tree(cli_out, readable, out, "CLI tree")
+    log(f"  (a) CLI `{' '.join(cmd[1:3])} …` exit 0 in {time.perf_counter() - t0:.3f} s "
+        f"(process start, build, model init, one pass): {len(readable)} crops, names exact, "
+        f"each {out}x{out}x3; corrupt file warned: "
+        f"{'Could not read' in proc.stderr}")
+
+    # (b) in-process "largest": one warm-up pass, then two timed passes per
+    # thread count.  Stage split from Cropper.stats (summed over threads).
+    c = Cropper(device=str(device), strategy="largest", **kw)
+    c.process_dir(src, os.path.join(work, "warm"), desc=None)
+    real_staged, real_warp = c._detect_crop_staged, cropper_mod.warp_affine_u8
+    staged, recorded = [0, 0], []
+
+    def counted_staged(images):
+        before = (nms_kern.launches, warp_kern.launches)
+        result = real_staged(images)
+        staged[0] += nms_kern.launches - before[0]
+        staged[1] += warp_kern.launches - before[1]
+        return result
+
+    def recording_warp(*args, **kwargs):
+        if not recorded:
+            recorded.append((args, kwargs))
+        return real_warp(*args, **kwargs)
+
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    rates, trees = {}, {}
+    for n_proc in (1, 4):
+        c.num_processes = n_proc
+        for rep in range(2):
+            dst = os.path.join(work, f"largest_p{n_proc}_{rep}")
+            c.stats = PipelineStats()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            if n_proc == 1:  # staged launches are exact with one thread
+                c._detect_crop_staged = counted_staged
+                cropper_mod.warp_affine_u8 = recording_warp
+            b_nms, b_warp = nms_kern.launches, warp_kern.launches
+            t0 = time.perf_counter()
+            try:
+                c.process_dir(src, dst, desc=None)
+            finally:
+                c._detect_crop_staged = real_staged
+                cropper_mod.warp_affine_u8 = real_warp
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+            check_tree(dst, readable, out, f"process_dir num_processes={n_proc}")
+            rates.setdefault(n_proc, []).append(len(readable) / sec)
+            trees[(n_proc, rep)] = dst
+            split = ", ".join(f"{k} {v['seconds']:.6f} s/{v['calls']} calls/{v['items']} items"
+                              for k, v in c.stats.as_dict().items())
+            log(f"  [{card}] (b) 'largest' num_processes={n_proc} pass {rep}: {len(readable)} "
+                f"crops in {sec:.6f} s = {len(readable) / sec:.6f} faces/s; K1 launches "
+                f"{nms_kern.launches - b_nms}, warp launches {warp_kern.launches - b_warp}; "
+                f"peak device memory {peak} B; stages: {split}")
+    dir_nms, dir_warp = nms_kern.launches, warp_kern.launches
+    log(f"  (b) launches over the 4 timed passes: K1 {dir_nms}, warp {dir_warp}; of the 2 "
+        f"one-thread passes on the staged path: K1 {staged[0]}, warp {staged[1]}")
+    if not rehearse and (min(staged) < 1 or dir_nms < 1 or dir_warp < 1):
+        raise SystemExit("FAIL: a kernel did not launch on the staged path of process_dir")
+    diffs = {(p, r): tree_diff(trees[(1, 0)], trees[(p, r)]) for p, r in trees if (p, r) != (1, 0)}
+    log("  (b) against the first one-thread tree (files differing, max pixel |diff|): "
+        + ", ".join(f"num_processes={p} pass {r}: {d}" for (p, r), d in diffs.items()))
+    if any(d != (0, 0) for d in diffs.values()):
+        raise SystemExit("FAIL: process_dir wrote another tree on another pass or thread count")
+    staged_err = check_chunk(*recorded[0], label="staged warp (windows, host interim)")
+    del recorded
+    # Without the device lock, four batches share the card at once.
+    c._device_lock = contextlib.nullcontext()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    c.process_dir(src, os.path.join(work, "unlocked"), desc=None)
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    log(f"  [{card}] (b) diagnostic, num_processes=4 without the device lock: "
+        f"{len(readable) / sec:.6f} faces/s, peak device memory {peak} B; against the "
+        f"one-thread tree (files differing, max pixel |diff|): "
+        f"{tree_diff(trees[(1, 0)], os.path.join(work, 'unlocked'))}")
+    fused_batch_sizes(c, src, [n for n in readable if "_" not in n[4:]],
+                      (16, 15, 12, 10, 8, 4, 2, 1) if not rehearse else (4, 3, 1), card)
+    del c
+
+    # (c) strategy "all", one pass, at most 4 faces an image (the tamed
+    # detector keeps hundreds of disjoint candidates an image).
+    c = Cropper(device=str(device), strategy="all", max_faces=4, auto_grow=False, **kw)
+    all_out = os.path.join(work, "all")
+    b_nms, b_warp = nms_kern.launches, warp_kern.launches
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the binding caps warn once
+        c.process_dir(src, all_out, desc=None)
+    sec = time.perf_counter() - t0
+    all_nms, all_warp = nms_kern.launches - b_nms, warp_kern.launches - b_warp
+    got = sorted(os.listdir(all_out))
+    stems = {os.path.splitext(n)[0].rsplit("_", 1)[0] for n in got}
+    zeros = {os.path.splitext(n)[0][:-2] for n in got if os.path.splitext(n)[0].endswith("_0")}
+    want = {os.path.splitext(n)[0] for n in readable}
+    bad = [n for n in got if (im := imread_rgb(os.path.join(all_out, n))) is None
+           or im.shape != (out, out, 3)]
+    log(f"  [{card}] (c) 'all' (max_faces 4, auto_grow off): {len(got)} crops of "
+        f"{len(stems)} images in {sec:.6f} s (first pass of its Cropper) = "
+        f"{len(got) / sec:.6f} faces/s; K1 launches {all_nms}, warp launches {all_warp}")
+    if stems != want or zeros != want or bad or len(got) > 4 * len(want):
+        raise SystemExit(f"FAIL: 'all' tree: {len(got)} files, {len(stems)} sources, bad {bad[:3]}")
+    del c
+
+    # (d) the port on the card vs on the CPU, 4 fused + 4 staged images, PNG.
+    sub = os.path.join(work, "sub")
+    os.makedirs(sub)
+    pick = [n for n in readable if "_" not in n[4:]][:4] + \
+        [n for n in readable if n.endswith("_r.jpg")][:4]
+    for n in pick:
+        shutil.copy(os.path.join(src, n), sub)
+    fused = None
+    for dev in (str(device), "cpu"):
+        cd = Cropper(device=dev, strategy="largest", output_format="png",
+                     **dict(kw, batch_size=4))
+        cd.process_dir(sub, os.path.join(work, f"sub_{dev}"), desc=None)
+        fused = fused or cd._fused_shapes
+    a_dir, b_dir = os.path.join(work, f"sub_{device}"), os.path.join(work, "sub_cpu")
+    names_a, names_b = sorted(os.listdir(a_dir)), sorted(os.listdir(b_dir))
+    if names_a != names_b or len(names_a) != len(pick):
+        raise SystemExit(f"FAIL: card vs CPU trees differ in names: {names_a} / {names_b}")
+    diff = max(int(np.abs(imread_rgb(os.path.join(a_dir, n)).astype(np.int16)
+                          - imread_rgb(os.path.join(b_dir, n)).astype(np.int16)).max())
+               for n in names_a)
+    log(f"  (d) {device} vs cpu, {len(pick)} images ({len(pick) // 2} fused: shapes {fused}; "
+        f"{len(pick) - len(pick) // 2} staged), PNG: names equal, max pixel |diff| {diff}")
+    if diff > 1:
+        raise SystemExit(f"FAIL: card vs CPU crops differ by {diff} > 1")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(nms=dir_nms + all_nms, warp=dir_warp + all_warp, staged_nms=staged[0],
+                staged_warp=staged[1], staged_err=staged_err,
+                faces_per_s={p: r for p, r in rates.items()})
+
+
 #: f32 operations per output pixel of the warp (coordinates, floor and
 #: fraction, four weights, 3 channels of 4 products and 3 sums, rounding).
 WARP_OPS_PER_PIXEL = 48
@@ -789,7 +1114,7 @@ def _rows(timings: dict) -> dict:
             for (label, key), t in timings.items()}
 
 
-def warp_row(wtimings, max_err, launches_largest, launches_all) -> dict:
+def warp_row(wtimings, max_err, launches_largest, launches_all, p5) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -805,9 +1130,11 @@ def warp_row(wtimings, max_err, launches_largest, launches_all) -> dict:
         "source": "face_crop_plus_tpu_torch/csrc/warp.cu",
         "replaces": "tools/mosaic_gather_probe.py:40",
         "redesigned": "PR 3",
-        "launches": launches_largest + launches_all,
+        "launches": launches_largest + launches_all + p5["warp"],
         "launches_largest": launches_largest,
         "launches_all": launches_all,
+        "launches_directory": p5["warp"],
+        "launches_directory_staged": p5["staged_warp"],
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -882,9 +1209,14 @@ def main() -> int:
     log(f"phase 0: card: {card}")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("  TF32 off for matmul and cuDNN: f32 compute")
+    from face_crop_plus_tpu_torch.utils.device import compute_precision
+    from face_crop_plus_tpu_torch.utils.io import codecs
+
+    log(f"  detector precision (as the package pins it): {json.dumps(compute_precision())}; "
+        f"process-wide flags outside it: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    for name, status in codecs().items():
+        log(f"  codec {name}: {status if status is not None else 'absent'}")
 
     # -- phase 1 -----------------------------------------------------------
     if rehearse:
@@ -1006,6 +1338,10 @@ def main() -> int:
 
     reference_check(device)
 
+    # -- phase 5 -----------------------------------------------------------
+    log("phase 5: directory pipeline: process_dir and the CLI, fused + staged paths")
+    p5 = phase5_directory(device, card, rehearse)
+
     # -- phase 4 -----------------------------------------------------------
     t_main = timings[max(ks)]
     t_256 = timings.get(256, t_main)
@@ -1015,9 +1351,11 @@ def main() -> int:
         "source": "face_crop_plus_tpu_torch/csrc/nms.cu",
         "replaces": "face_crop_plus_tpu/ops/pallas/nms_kernel.py:28",
         "redesigned": "PR 3",
-        "launches": main_launches + all_nms,
+        "launches": main_launches + all_nms + p5["nms"],
         "launches_largest": main_launches,
         "launches_all": all_nms,
+        "launches_directory": p5["nms"],
+        "launches_directory_staged": p5["staged_nms"],
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -1035,7 +1373,8 @@ def main() -> int:
         "scan_pass_ms_k256": t_256["scan_pass_ms"],
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
-    }, warp_row(wtimings, max(warp_err, chunk_err), warp_main_launches, all_warp),
+    }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
+               all_warp, p5),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

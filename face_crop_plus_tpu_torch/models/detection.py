@@ -16,13 +16,17 @@ batch runs, and grown caps cost no recompile.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
 
+from ..ops.anchors import anchor_grid, num_anchors
+from ..ops.nms import select_faces
 from ..ops.nn import FoldedBatchNorm, conv, leaky_relu, resize_nearest, softmax
 from ..utils.batching import next_pow2
-from ..utils.device import resolve_device
+from ..utils.device import f32_precision, resolve_device
 from .backbones import ResNet50Features
 from .weights import load_or_init
 
@@ -228,11 +232,45 @@ class RetinaFace:
         self._cap_warned = False
         self.device = resolve_device(device)
 
-        # float32 throughout, as the JAX package computes off the TPU.
+        # float32 throughout, as the JAX package computes off the TPU: the
+        # forward runs under f32_precision (TF32 off).
         net = RetinaFaceNet()
         self.pretrained = load_or_init("retinaface", net, weights_dir)
         self.net = net.to(self.device).eval()
         self.net.requires_grad_(False)
+
+    def _detect(self, images: torch.Tensor, args: dict, stage=None):
+        """Network, decode and face selection for a batch on the device.
+
+        Args:
+            images: (N, H, W, 3) RGB pixels (uint8 or float32) at the
+                detector's resolution, on :attr:`device`.
+            args: The knobs of :meth:`_detect_args` (or grown ones).
+            stage: Optional ``stage(name)`` → context manager, entered
+                around "network" and "select".
+
+        Returns:
+            Padded landmarks (N, K, 10), validity (N, K) and int32 cap
+            diagnostics (N, 2) of :func:`..ops.nms.select_faces`, which
+            launches the greedy-NMS kernel on a CUDA batch.
+        """
+        stage = stage or (lambda name: contextlib.nullcontext())
+        h, w = images.shape[1:3]
+        with stage("network"), f32_precision():
+            scores2, loc, ldm = retinaface_forward(self.net, preprocess(images))
+        with stage("select"):
+            priors = torch.tensor(anchor_grid(h, w), device=images.device)
+            boxes, landms = decode_detections(loc, ldm, priors, (h, w), args["variances"])
+            return select_faces(
+                scores2[..., 1].float(),
+                boxes,
+                landms,
+                vis_threshold=args["vis_threshold"],
+                nms_threshold=args["nms_threshold"],
+                pre_topk=args["pre_topk"],
+                max_faces=args["max_faces"],
+                strategy=args["strategy"],
+            )
 
     def _detect_args(self) -> dict:
         """Current values of the overridable knobs."""
@@ -326,3 +364,42 @@ class RetinaFace:
             "diverge from the uncapped reference semantics. Raise "
             "pre_topk/max_faces or enable auto_grow."
         )
+
+    def detect_padded(self, images: np.ndarray | torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """Detection on an interim batch, returning padded host arrays.
+
+        Counterpart of the JAX ``RetinaFace.detect_padded``
+        (``face_crop_plus_tpu/models/detection.py:396-427``) without its
+        mesh branch: the uint8 (N, H, W, 3) batch (a host array, or a
+        tensor already on :attr:`device`) runs under the cap-growth policy.
+
+        Returns:
+            Landmarks (N, K, 10) float32 and validity (N, K) bool, where K
+            is ``max_faces`` for strategy "all" and 1 otherwise.
+        """
+        h, w = images.shape[1:3]
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        imgs = images.to(self.device)
+
+        def dispatch(args):
+            sel, valid, caps = self._detect(imgs, args)
+            return (sel, valid), caps
+
+        sel, valid = self.dispatch_with_growth(dispatch, num_anchors(h, w), len(images))
+        return sel.cpu().numpy(), valid.cpu().numpy()
+
+    def predict(self, images: np.ndarray | torch.Tensor) -> tuple[np.ndarray, list[int]]:
+        """Predicts landmark sets for a uint8 RGB (N, H, W, 3) image batch.
+
+        Counterpart of the JAX ``RetinaFace.predict`` (``:429-444``).
+
+        Returns:
+            Tuple of a float32 (num_faces, 5, 2) landmark array and the
+            list of source-image indices, compacted row-major: in image
+            order, then score order.
+        """
+        landms, valid = self.detect_padded(images)
+        img_idx, face_idx = np.nonzero(valid)
+        landmarks = landms[img_idx, face_idx].reshape(-1, 5, 2)
+        return landmarks.astype(np.float32), img_idx.tolist()

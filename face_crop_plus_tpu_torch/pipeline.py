@@ -31,10 +31,8 @@ import contextlib
 import numpy as np
 import torch
 
-from .models.detection import decode_detections, preprocess, retinaface_forward
-from .ops.anchors import anchor_grid
+from .ops.anchors import num_anchors
 from .ops.cuda.warp import warp_affine_u8
-from .ops.nms import select_faces
 from .ops.nn import resize_bilinear
 from .ops.transform import estimate_affine, estimate_similarity
 from .ops.warp import to_uint8
@@ -165,24 +163,8 @@ class FusedPipeline:
             else:
                 interim, scale, pad = images.to(torch.float32), 1.0, (0, 0, 0, 0)
 
-        with self._stage("network"):
-            scores2, loc, ldm = retinaface_forward(self.det.net, preprocess(interim))
-
+        sel, valid, caps = self.det._detect(interim, args, self._stage)
         with self._stage("select"):
-            priors = torch.tensor(anchor_grid(interim_h, interim_w), device=self.device)
-            boxes, landms = decode_detections(
-                loc, ldm, priors, (interim_h, interim_w), args["variances"]
-            )
-            sel, valid, caps = select_faces(
-                scores2[..., 1].float(),
-                boxes,
-                landms,
-                vis_threshold=args["vis_threshold"],
-                nms_threshold=args["nms_threshold"],
-                pre_topk=args["pre_topk"],
-                max_faces=args["max_faces"],
-                strategy=args["strategy"],
-            )  # sel: (N, K, 10), valid: (N, K), caps: (N, 2)
             k = sel.shape[1]
             # Landmarks back to source-image coordinates: un-pad, un-scale.
             offset = torch.tensor([pad[2], pad[0]], dtype=torch.float32, device=self.device)
@@ -337,7 +319,7 @@ class FusedPipeline:
             src = to_uint8(interim).contiguous() if interim_crops else imgs
             return (face_lm, valid, caps, src), caps
 
-        out = self.det.dispatch_with_growth(dispatch, len(anchor_grid(ih, iw)), valid_n)
+        out = self.det.dispatch_with_growth(dispatch, num_anchors(ih, iw), valid_n)
 
         if two_program:
             dev_face_lm, dev_valid, _caps, src_imgs = out
@@ -422,7 +404,7 @@ class FusedPipeline:
             "event": event,
             "args": args,
             "dispatch": dispatch,
-            "n_anchors": len(anchor_grid(ih, iw)),
+            "n_anchors": num_anchors(ih, iw),
             "valid_n": valid_n,
             "n": n,
         }
