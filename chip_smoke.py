@@ -69,8 +69,27 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    bitwise equal to the plain warp.  (c) strategy "all" (at most 4 faces
    an image), one pass.  (d) card vs CPU on 4 fused + 4 staged images,
    PNG: names equal, pixels within ±1.
-4. The ``kernels`` JSON line (phase 5's launches beside the others), the
-   card line, and the ``ok`` line last.
+6. Parsing at full width: BiSeNet (ResNet-18 trunk, context path, feature
+   fusion) at 512², 19 classes, seeded tamed weights, batch 16, behind
+   phase 3's detector and crops; groups: a positive attribute, a negative
+   one, a multi-class group OR-joined, and mask groups, one of which
+   ("face") nearly every face joins.  (a) ``process_images`` with groups on
+   phase 3's batches: the parser's parameters on the card, K1 and the warp
+   launched on every request, groups not empty; request seconds, faces/s
+   beside phase 3's, the stage "parse", peak memory, one profiled request's
+   top kernels; parse times of 16 crops, of 15 padded to 16 and (a
+   diagnostic) of 15 unpadded; the parser's multiply-adds a face.  (b) The
+   card against the CPU on 4 crops: labels equal except where the CPU's
+   top-2 logit margin is at most 1e-3 (counted), counts within those
+   flips, groups equal.  (c) ``process_dir`` with groups over phase 5's
+   directory, "largest" with 1 thread (2 passes) and 4 (1 pass): trees byte
+   for byte equal, every ``<attr>/<mask>`` directory beside its ``_mask``,
+   faces/s; then "all" at 4 faces an image, whose pure batches hand the
+   parser their crops on the device (counted, must be > 0).  (d) The
+   landmark-free mode through the CLI (``-dt -1 -ag … -mg …``) over the
+   directory's uniform originals.
+4. The ``kernels`` JSON line (phase 5's and 6's launches beside the
+   others), the card line, and the ``ok`` line last.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
 versions (no build, no launch counts; phase 5's CLI with ``-d cpu``) and
@@ -841,15 +860,15 @@ def write_directory(path, n_uniform, uniform_hw, ragged_hw, seed=5):
     return sorted(readable)
 
 
-def write_npz(path, net, seed=1):
-    """Tamed seeded weights as the ``retinaface.npz`` both packages read
-    (JAX layout: HWIO conv kernels, folded BN)."""
+def write_npz(path, name, state_dict):
+    """A state dict as the ``<name>.npz`` both packages read (JAX layout:
+    HWIO conv kernels, folded BN)."""
     os.makedirs(path, exist_ok=True)
     arrays = {}
-    for key, val in tamed_state_dict(net, seed).items():
-        val = val.numpy()
+    for key, val in state_dict.items():
+        val = val.cpu().numpy()
         arrays[key] = np.transpose(val, (2, 3, 1, 0)) if val.ndim == 4 else val
-    np.savez(os.path.join(path, "retinaface.npz"), **arrays)
+    np.savez(os.path.join(path, f"{name}.npz"), **arrays)
 
 
 def check_tree(out_dir, expected, out_size, what):
@@ -953,7 +972,7 @@ def phase5_directory(device, card, rehearse):
 
     # (a) the CLI, in a process of its own.  -dt 0 keeps every candidate of
     # the tamed detector (a negative threshold switches detection off).
-    write_npz(wdir, RetinaFaceNet())
+    write_npz(wdir, "retinaface", tamed_state_dict(RetinaFaceNet()))
     cli_out = os.path.join(work, "cli")
     cmd = [sys.executable, "-m", "face_crop_plus_tpu_torch", "-i", src, "-o", cli_out,
            "-r", str(resize), "-s", str(out), "-dt", "0", "-b", str(bs), "-w", wdir]
@@ -1097,10 +1116,325 @@ def phase5_directory(device, card, rehearse):
         f"{len(pick) - len(pick) // 2} staged), PNG: names equal, max pixel |diff| {diff}")
     if diff > 1:
         raise SystemExit(f"FAIL: card vs CPU crops differ by {diff} > 1")
-    shutil.rmtree(work, ignore_errors=True)
     return dict(nms=dir_nms + all_nms, warp=dir_warp + all_warp, staged_nms=staged[0],
                 staged_warp=staged[1], staged_err=staged_err,
-                faces_per_s={p: r for p, r in rates.items()})
+                faces_per_s={p: r for p, r in rates.items()},
+                work=work, src=src, wdir=wdir, readable=readable, kw=kw)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: parsing
+# ---------------------------------------------------------------------------
+
+#: Phase 6's groups: a positive attribute, a negative one, a two-class
+#: group (OR-joined: the parser's ``attr_join_by_and`` is switched off),
+#: and mask groups, of which "face" (every class but the background) takes
+#: nearly every face.  The tamed random weights give no class its meaning:
+#: on crops and originals they label most pixels 18 and 1, many 9, 12 and
+#: 14, a few 2 and 13, and none 3.
+ATTR_GROUPS = {"has_1": [1], "not_3": [-3], "2_or_13": [2, 13]}
+MASK_GROUPS = {"face": list(range(1, 19)), "cls_9": [9]}
+#: Tamed parser weights (the recipe of ``tests/torch_parity.py``): conv
+#: gain, BN scale, bias spread and the gain of the final class conv; they
+#: spread the logits over many classes with few near-ties.
+PARSER_TAMING = (2.0, 0.7, 0.3, 16.0)
+#: Card vs CPU: labels may differ only where the CPU's top-2 logit margin
+#: is at most this (f32 on both; cuDNN and the CPU sum in other orders).
+PARSE_EPS = 1e-3
+
+
+def tamed_parser_state_dict(net, seed: int = 1):
+    """Seeded parser weights after :data:`PARSER_TAMING`."""
+    gain, bn_scale, bias, head_gain = PARSER_TAMING
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, ref in net.state_dict().items():
+        if ref.ndim == 4:
+            fan_in = ref.shape[1] * ref.shape[2] * ref.shape[3]
+            g = head_gain if key == "conv_out.conv_out.weight" else gain
+            w = rng.normal(size=tuple(ref.shape)) * np.sqrt(g / fan_in)
+            out[key] = torch.from_numpy(w.astype(np.float32))
+        elif key.endswith(".scale"):
+            out[key] = torch.full(tuple(ref.shape), bn_scale)
+        else:
+            out[key] = torch.from_numpy((rng.normal(size=tuple(ref.shape)) * bias).astype(np.float32))
+    return out
+
+
+def parser_macs(par, n: int, hw: int) -> tuple[int, int]:
+    """(conv, resize) multiply-adds of one sub-batch of n faces of hw²:
+    every convolution from its output shape, and the two resizes' products
+    (the input to 512², the 64² logits to 512²)."""
+    convs = [m for m in par.net.modules() if isinstance(m, torch.nn.Conv2d)]
+    total = [0]
+
+    def hook(m, _inp, out):
+        total[0] += out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in convs]
+    try:
+        par._logits(torch.zeros((n, hw, hw, 3), dtype=torch.uint8, device=par.device))
+    finally:
+        for h in handles:
+            h.remove()
+    resize = n * 3 * (512 * hw * hw + 512 * 512 * hw) + n * 19 * (512 * 64 * 64 + 512 * 512 * 64)
+    return total[0], resize
+
+
+def tree_digest(root) -> dict:
+    """Every file under ``root`` by relative path → its bytes."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def check_parse_tree(root, most_faces, what) -> tuple[dict, int]:
+    """Holds a parse tree: every directory is ``<attr>/<mask>`` or its
+    ``_mask`` sibling with as many files, at least one ``<attr>/face``
+    exists, masks are 2-D 0/255 of their crop's size.  Returns the files
+    per directory and the faces written (distinct names under ``*/face``;
+    a face in no attribute group is not written), at most ``most_faces``."""
+    import cv2
+
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+
+    per_dir, names = {}, set()
+    for d, _, files in os.walk(root):
+        if files:
+            rel = os.path.relpath(d, root)
+            per_dir[rel] = len(files)
+            if rel.endswith("/face"):
+                names.update(files)
+    bad = [k for k in per_dir if not k.endswith("_mask") and per_dir.get(k + "_mask") != per_dir[k]]
+    if bad or any(k.count("/") != 1 for k in per_dir) or not 0 < len(names) <= most_faces:
+        raise SystemExit(f"FAIL: {what}: directories {per_dir}, {len(names)} faces under "
+                         f"*/face (at most {most_faces}), without masks {bad}")
+    d = next(k for k in per_dir if k.endswith("/face_mask"))
+    name = sorted(os.listdir(os.path.join(root, d)))[0]
+    mask = cv2.imread(os.path.join(root, d, name), cv2.IMREAD_UNCHANGED)
+    crop = imread_rgb(os.path.join(root, d[: -len("_mask")], name))
+    if mask is None or mask.ndim != 2 or mask.shape != crop.shape[:2] or not set(
+            np.unique(mask).tolist()) <= {0, 255}:
+        raise SystemExit(f"FAIL: {what}: mask {d}/{name} is not a 2-D 0/255 mask of its crop")
+    return per_dir, len(names)
+
+
+def count_inputs(model) -> dict:
+    """Wraps ``model.predict`` to count device-tensor and host-array inputs."""
+    inputs = {"device": 0, "host": 0}
+    real = model.predict
+
+    def predict(images, *args, **kwargs):
+        inputs["device" if torch.is_tensor(images) else "host"] += 1
+        return real(images, *args, **kwargs)
+
+    model.predict = predict
+    return inputs
+
+
+def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
+    """Parsing at full width; see the module docstring.
+
+    Returns the kernels' launches on the parse requests and directory
+    passes, and the numbers the kernels line carries.
+    """
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.models.parsing import BiSeNet
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.ops.nn import resize_nearest
+    from face_crop_plus_tpu_torch.utils.profiling import PipelineStats
+
+    n = batches[0].shape[0]
+    out, resize = (32, 64) if rehearse else (256, 1024)
+    groups_kw = dict(attr_groups=ATTR_GROUPS, mask_groups=MASK_GROUPS)
+    c = Cropper(device=str(device), strategy="largest", det_threshold=-1.0, batch_size=n,
+                output_size=out, resize_size=resize, **groups_kw)
+    par = c.par_model
+    par.net.load_state_dict(tamed_parser_state_dict(par.net))
+    par.attr_join_by_and = False
+    if not all(t.device.type == device.type for t in par.net.state_dict().values()) or \
+            par.device.type != device.type:
+        raise SystemExit("FAIL: parser parameters are not on the device")
+
+    # (a) process_images with groups on the phase-3 batches.
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    per_request, seconds, faces = [], [], []
+    for r, batch in enumerate(batches[:5]):
+        before = (nms_kern.launches, warp_kern.launches)
+        t0 = time.perf_counter()
+        crops, indices, (attr, mask) = c.process_images(batch)
+        seconds.append(time.perf_counter() - t0)
+        per_request.append((nms_kern.launches - before[0], warp_kern.launches - before[1]))
+        faces.append(len(indices))
+        sizes = {**{k: len(v) for k, v in (attr or {}).items()},
+                 **{f"{k} (mask)": len(v[0]) for k, v in (mask or {}).items()}}
+        if (crops.shape != (n, out, out, 3) or not attr or not mask or "face" not in mask
+                or mask["face"][1].shape[1:] != (out, out)):
+            raise SystemExit(f"FAIL: parse request {r}: crops {crops.shape}, groups {sizes}")
+        log(f"  (a) request {r}: {len(indices)} faces, group sizes {sizes}, K1 launches "
+            f"{per_request[-1][0]}, warp launches {per_request[-1][1]}, {seconds[-1]:.6f} s")
+        if r == 0:
+            c.stats = PipelineStats()  # stage times after the warm-up
+    launches = (nms_kern.launches, warp_kern.launches)
+    if not rehearse and min(min(p) for p in per_request) < 1:
+        raise SystemExit("FAIL: K1 or the warp did not launch on every parse request")
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    fps = sum(faces[1:]) / sum(seconds[1:])
+    parse = c.stats.as_dict()["parse"]
+    parse_ms = parse["seconds"] / parse["calls"] * 1e3
+    log(f"  [{card}] (a) {fps:.6f} faces/s with parsing over {len(seconds) - 1} requests after "
+        f"one warm-up (phase 3 without parsing: {p3_fps:.6f}); request seconds "
+        + ", ".join(f"{s:.6f}" for s in seconds))
+    log(f"  [{card}] (a) stage 'parse' {parse_ms:.6f} ms a request ({parse['calls']} calls "
+        f"after the warm-up, {parse['items']} faces, synchronised by the host copies); peak "
+        f"device memory {peak} B ({peak / 2**30:.6f} GiB)")
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        rows = device_kernels(lambda: c.process_images(batches[4]), reps=1)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        busy = sum(r[1] for r in rows)
+        log(f"  [{card}] (a) profiled request: device kernel time {busy:.3f} us of "
+            f"{wall_us:.3f} us wall (profiler on); busy share {busy / wall_us:.6f}; "
+            f"{sum(r[2] for r in rows)} kernel launches; top kernels:")
+        for name, us, count in rows[:10]:
+            log(f"    {us:12.3f} us  x{count:4d}  {name[:110]}")
+
+    # Parse times at n and at a padded n - 1, beside an unpadded n - 1.
+    clock = Clock(device)
+    ms_n = clock.ms(lambda: par.predict(crops), reps=5, warmup=1)
+    ms_pad = clock.ms(lambda: par.predict(crops[: n - 1]), reps=5, warmup=1)
+    dev_short = torch.from_numpy(crops[: n - 1]).to(device)
+    ms_short = clock.ms(lambda: par._parse(dev_short, out, out), reps=3, warmup=1)
+    conv_macs, resize_macs = parser_macs(par, n, out)
+    t_ops = 2 * (conv_macs + resize_macs) / PEAK_F32_FLOPS * 1e3
+    log(f"  [{card}] parse of {n} crops (predict: upload, network, argmax, counts, packed "
+        f"masks, host copies): {ms_n:.6f} ms; of {n - 1} padded to {n}: {ms_pad:.6f} ms; "
+        f"diagnostic, {n - 1} unpadded (_parse only): {ms_short:.6f} ms")
+    log(f"  [{card}] parser work a sub-batch of {n}: {conv_macs / n / 1e9:.6f} G MAC of "
+        f"convolution and {resize_macs / n / 1e9:.6f} G MAC of resizes a face; "
+        f"{2 * (conv_macs + resize_macs) / (ms_n * 1e-3) / 1e12:.6f} TFLOP/s achieved by "
+        f"predict; f32 bound {t_ops:.6f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s")
+
+    # (b) the card against the CPU on 4 crops.
+    four = crops[:4]
+    cpu = BiSeNet(max_batch_size=4, device="cpu", **groups_kw)
+    cpu.net.load_state_dict(par.net.state_dict())
+    cpu.attr_join_by_and = False
+    lab_d, cnt_d = par.parse_batch(four)
+    lab_c, cnt_c = cpu.parse_batch(four)
+    logits_c = cpu._logits(torch.from_numpy(four))
+    logits_d = par._logits(torch.from_numpy(four).to(device)).cpu()
+    top2 = logits_c.topk(2, dim=1).values
+    near = resize_nearest((top2[:, :1] - top2[:, 1:2]), (out, out))[:, 0].numpy() <= PARSE_EPS
+    differ = lab_d != lab_c
+    flips = differ.reshape(len(four), -1).sum(1)
+    gd, gc = par.predict(four), cpu.predict(four)
+    same_groups = gd[0] == gc[0] and {k: v[0] for k, v in gd[1].items()} == {
+        k: v[0] for k, v in gc[1].items()}
+    log(f"  (b) {device} vs cpu on {len(four)} crops: logits max |diff| "
+        f"{float((logits_d - logits_c).abs().max()):.6g} (max |logit| "
+        f"{float(logits_c.abs().max()):.6g}); {int(near.sum())} near-tie pixels (CPU top-2 "
+        f"margin <= {PARSE_EPS}); labels differ at {int(differ.sum())} pixels, "
+        f"{int((differ & ~near).sum())} of them off near-ties; counts |diff| per face "
+        f"{np.abs(cnt_d.astype(np.int64) - cnt_c).sum(1).tolist()} (flips {flips.tolist()}); "
+        f"groups equal: {same_groups}")
+    if (differ & ~near).any() or (np.abs(cnt_d.astype(np.int64) - cnt_c).sum(1) > 2 * flips).any() \
+            or not same_groups:
+        raise SystemExit("FAIL: parse on the card differs from the CPU off near-ties")
+    del c, cpu, logits_c, logits_d
+
+    # (c) process_dir with groups over phase 5's directory.
+    src, readable, kw = p5["src"], p5["readable"], dict(p5["kw"], **groups_kw)
+    write_npz(p5["wdir"], "bisenet", tamed_parser_state_dict(par.net))
+    del par
+    cd = Cropper(device=str(device), strategy="largest", **kw)
+    cd.par_model.attr_join_by_and = False
+    cd.process_dir(src, os.path.join(p5["work"], "parse_warm"), desc=None)
+    inputs = count_inputs(cd.par_model)
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    digests = {}
+    for n_proc, reps in ((1, 2), (4, 1)):
+        cd.num_processes = n_proc
+        for rep in range(reps):
+            dst = os.path.join(p5["work"], f"parse_p{n_proc}_{rep}")
+            cd.stats = PipelineStats()
+            t0 = time.perf_counter()
+            cd.process_dir(src, dst, desc=None)
+            sec = time.perf_counter() - t0
+            per_dir, n_faces = check_parse_tree(dst, len(readable), f"parse tree p{n_proc} pass {rep}")
+            digests[(n_proc, rep)] = tree_digest(dst)
+            split = ", ".join(f"{k} {v['seconds']:.6f} s/{v['calls']} calls/{v['items']} items"
+                              for k, v in cd.stats.as_dict().items())
+            log(f"  [{card}] (c) 'largest' with groups, num_processes={n_proc} pass {rep}: "
+                f"{len(readable)} crops in {sec:.6f} s = {len(readable) / sec:.6f} faces/s "
+                f"({n_faces} written: the rest are in no attribute group; "
+                f"{sum(per_dir.values())} files); stages: {split}")
+            log(f"    tree {per_dir}")
+    base = digests[(1, 0)]
+    differ = {f"p{k[0]} pass {k[1]}": sum(base.get(f) != v.get(f) for f in set(base) | set(v))
+              for k, v in digests.items()}
+    log(f"  (c) files differing from the first one-thread tree: {differ}; parser inputs on the "
+        f"timed passes: {inputs['device']} device handoffs, {inputs['host']} host crop arrays")
+    if any(differ.values()):
+        raise SystemExit("FAIL: the parse tree differs across passes or thread counts")
+    dir_launches = (nms_kern.launches, warp_kern.launches)
+    if not rehearse and min(dir_launches) < 1:
+        raise SystemExit("FAIL: K1 or the warp did not launch in the parse passes")
+    del cd
+
+    ca = Cropper(device=str(device), strategy="all", max_faces=4, auto_grow=False, **kw)
+    ca.par_model.attr_join_by_and = False
+    inputs = count_inputs(ca.par_model)
+    all_out = os.path.join(p5["work"], "parse_all")
+    before = (nms_kern.launches, warp_kern.launches)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the binding caps warn once
+        ca.process_dir(src, all_out, desc=None)
+    sec = time.perf_counter() - t0
+    per_dir, n_faces = check_parse_tree(all_out, 4 * len(readable), "'all' parse tree")
+    log(f"  [{card}] (c) 'all' with groups (max_faces 4): {n_faces} faces written in "
+        f"{sec:.6f} s = {n_faces / sec:.6f} faces/s (first pass of its Cropper); parser "
+        f"inputs: {inputs['device']} device handoffs, {inputs['host']} host crop arrays; K1 "
+        f"launches {nms_kern.launches - before[0]}, warp launches "
+        f"{warp_kern.launches - before[1]}; tree {per_dir}")
+    if not rehearse and inputs["device"] < 1:
+        raise SystemExit("FAIL: no parser input came by the device handoff in 'all'")
+    dir_launches = (nms_kern.launches, warp_kern.launches)
+    del ca
+
+    # (d) the landmark-free mode through the CLI, over the uniform files.
+    uni = os.path.join(p5["work"], "uniform")
+    os.makedirs(uni)
+    names = [f for f in readable if "_" not in f[4:]]
+    for f in names:
+        os.link(os.path.join(src, f), os.path.join(uni, f))
+    cli_out = os.path.join(p5["work"], "parse_cli")
+    cmd = [sys.executable, "-m", "face_crop_plus_tpu_torch", "-i", uni, "-o", cli_out, "-dt", "-1",
+           "-b", str(n), "-w", p5["wdir"], "-ag", json.dumps(ATTR_GROUPS),
+           "-mg", json.dumps(MASK_GROUPS)]
+    if rehearse:
+        cmd += ["-d", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"FAIL: the landmark-free CLI exited {proc.returncode}:\n"
+                         f"{proc.stderr[-3000:]}")
+    per_dir, n_faces = check_parse_tree(cli_out, len(names), "landmark-free CLI tree")
+    log(f"  (d) CLI `-dt -1 -ag … -mg …` over {len(names)} uniform originals: exit 0 in "
+        f"{sec:.3f} s (process start, model init, one pass); {n_faces} written; tree {per_dir}")
+    return dict(nms=launches[0], warp=launches[1], dir_nms=dir_launches[0],
+                dir_warp=dir_launches[1], fps=fps, parse_ms=parse_ms)
 
 
 #: f32 operations per output pixel of the warp (coordinates, floor and
@@ -1114,7 +1448,7 @@ def _rows(timings: dict) -> dict:
             for (label, key), t in timings.items()}
 
 
-def warp_row(wtimings, max_err, launches_largest, launches_all, p5) -> dict:
+def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -1130,11 +1464,13 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5) -> dict:
         "source": "face_crop_plus_tpu_torch/csrc/warp.cu",
         "replaces": "tools/mosaic_gather_probe.py:40",
         "redesigned": "PR 3",
-        "launches": launches_largest + launches_all + p5["warp"],
+        "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"],
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
         "launches_directory_staged": p5["staged_warp"],
+        "launches_parse": p6["warp"],
+        "launches_parse_directory": p6["dir_warp"],
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -1342,6 +1678,13 @@ def main() -> int:
     log("phase 5: directory pipeline: process_dir and the CLI, fused + staged paths")
     p5 = phase5_directory(device, card, rehearse)
 
+    # -- phase 6 -----------------------------------------------------------
+    log(f"phase 6: parsing: RetinaFace ResNet-50 at {resize}² → {out_size}² crops → BiSeNet "
+        f"at 512², 19 classes, batch {n}: process_images, card vs CPU, process_dir, the "
+        "landmark-free CLI")
+    p6 = phase6_parsing(batches, fps, p5, device, card, rehearse)
+    shutil.rmtree(p5["work"], ignore_errors=True)
+
     # -- phase 4 -----------------------------------------------------------
     t_main = timings[max(ks)]
     t_256 = timings.get(256, t_main)
@@ -1351,11 +1694,13 @@ def main() -> int:
         "source": "face_crop_plus_tpu_torch/csrc/nms.cu",
         "replaces": "face_crop_plus_tpu/ops/pallas/nms_kernel.py:28",
         "redesigned": "PR 3",
-        "launches": main_launches + all_nms + p5["nms"],
+        "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"],
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
         "launches_directory_staged": p5["staged_nms"],
+        "launches_parse": p6["nms"],
+        "launches_parse_directory": p6["dir_nms"],
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -1374,7 +1719,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5),
+               all_warp, p5, p6),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

@@ -5,10 +5,13 @@ flags: every Cropper setting is a flag, a JSON config file gives defaults
 that explicit flags override (``-c/--config``), negative thresholds mean
 "disabled", and filename cleaning runs as a pre-pass into a temp directory
 (``-cn``) or in place (``-ci``).  ``-d`` defaults to the card ("auto" means
-"cuda"); ``-d cpu`` runs on the CPU.  Flags for paths the port does not
-have yet (landmarks, enhancement, parsing, ``-hc 1``, ``-pu 1``,
-``-pf 1``) reach ``Cropper`` and raise ``NotImplementedError`` there;
-``-si auto`` (multi-GPU sharding) raises here.
+"cuda"); ``-d cpu`` runs on the CPU.  ``-ag``/``-mg`` (JSON dicts of class
+indices) parse every crop with BiSeNet into the ``<attr>/<mask>`` and
+``<mask>_mask`` subtrees; ``-dt -1`` without ``-l`` is the landmark-free
+mode (whole images pass through, parsed when groups are set).  Flags for
+paths the port does not have yet (landmarks, enhancement, ``-hc 1``,
+``-pu 1``, ``-pf 1``) reach ``Cropper`` and raise ``NotImplementedError``
+there; ``-si auto`` (multi-GPU sharding) raises here.
 """
 
 from __future__ import annotations
@@ -63,14 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to a landmarks file (json/csv/txt) to skip detection "
                         "(not ported yet).")
     p.add_argument("-ag", "--attr-groups", type=json.loads,
-                   help='JSON dict of attribute groups, e.g. \'{"glasses": [6]}\' '
-                        "(not ported yet).")
+                   help='JSON dict of attribute groups, e.g. \'{"glasses": [6]}\'.')
     p.add_argument("-mg", "--mask-groups", type=json.loads,
-                   help='JSON dict of mask groups, e.g. \'{"eyes": [4, 5]}\' '
-                        "(not ported yet).")
+                   help='JSON dict of mask groups, e.g. \'{"eyes": [4, 5]}\'.')
     p.add_argument("-dt", "--det-threshold", type=float, default=0.6,
                    help="Face detection confidence threshold; negative disables "
-                        "detection.")
+                        "detection (without -l: whole images pass through).")
     p.add_argument("-et", "--enh-threshold", type=float, default=-1,
                    help="Enhancement face-factor threshold; negative disables "
                         "enhancement.")

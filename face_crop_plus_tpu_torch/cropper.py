@@ -1,12 +1,16 @@
-"""Face cropper, detection mode: images or a directory → aligned face crops.
+"""Face cropper: images or a directory → aligned face crops and groups.
 
 Counterpart of ``face_crop_plus_tpu.cropper.Cropper`` with the same
 constructor surface.  Ported: the detection configuration with strategies
 "best"/"largest"/"all" and ``crop_source`` "original"/"interim", through
 the in-memory serving entry point :meth:`Cropper.process_images` and the
 directory pipeline :meth:`Cropper.process_dir` (read → detect and crop →
-save, the JAX package's crop tree), which the CLI
-(``python -m face_crop_plus_tpu_torch``) drives.
+parse → save, the JAX package's tree), which the CLI
+(``python -m face_crop_plus_tpu_torch``) drives; BiSeNet parsing into
+``attr_groups``/``mask_groups`` (the ``<attr>/<mask>`` and ``<mask>_mask``
+subtrees); and the landmark-free mode (``det_threshold=None`` without
+landmarks), where whole images pass through to the tree, parsed when groups
+are set.
 
 Two paths crop faces, and which one a batch takes decides which pixels its
 crops sample, so the routing is part of the result:
@@ -28,10 +32,14 @@ JAX package's rule (``cropper.py:312-329``, ``:1487-1521``), where the
 budget bounds compiled XLA programs; the port keeps it so that both
 packages crop the same pixels.
 
+When a directory batch forms exactly one fused group and nothing is staged,
+the parser reads that group's crops on the device (the fused pipeline's
+handoff); otherwise it reads the host crops.  Both give the same groups.
+
 Everything else raises ``NotImplementedError`` naming the missing path:
-landmark-file and landmark-free modes, enhancement, parsing, meshes, the
-host-crop mode (``FCPT_HOST_CROP=1``) and packed 4:2:0 transfers
-(``FCPT_PACK_UPLOAD=1``, ``FCPT_PACK_FETCH=1``).
+the landmark-file mode, enhancement, meshes, the host-crop mode
+(``FCPT_HOST_CROP=1``) and packed 4:2:0 transfers (``FCPT_PACK_UPLOAD=1``,
+``FCPT_PACK_FETCH=1``).
 """
 
 from __future__ import annotations
@@ -63,11 +71,12 @@ def _pair(size) -> tuple[int, int]:
 
 
 class Cropper:
-    """Face cropper (detection mode) on a CUDA card, or the CPU on request.
+    """Face cropper on a CUDA card, or the CPU on request.
 
     Args mirror the JAX ``Cropper``; ``device`` None (or "auto") means
     "cuda" and raises when CUDA is absent — pass ``device="cpu"`` to run on
-    the CPU.  ``stats`` accumulates per-stage wall time
+    the CPU.  ``det_model`` and ``par_model`` are None when their feature
+    is off; ``stats`` accumulates per-stage wall time
     (:class:`.utils.profiling.PipelineStats`).
     """
 
@@ -129,39 +138,23 @@ class Cropper:
         self._device = resolve_device(device)
         self._init_models()
         self._init_landmarks_target()
-
-        from .pipeline import FusedPipeline
-
-        self._fused = FusedPipeline(
-            det_model=self.det_model,
-            target_landmarks=self.landmarks_target,
-            output_size=self.output_size,
-            border_mode=self.padding,
-            allow_skew=self.allow_skew,
-            crop_source=self.crop_source,
-        )
-        #: Source shapes granted the fused path (see the module docstring);
-        #: locked, since worker threads race on check-then-add.
-        self._fused_shapes: set = set()
-        self._fused_shapes_lock = threading.Lock()
-        #: One batch's device work at a time.  ``process_dir``'s worker
-        #: threads overlap host decode, resize and encode with it.  Batches
-        #: run together only queue on the card and add up their peak memory
-        #: (~19 GiB for 16 images at a 1024² interim; four at once reached
-        #: 35–74 GB on an 80 GB H100), and near its limit cuDNN may pick
-        #: other algorithms, whose f32 sums round differently: the crop
-        #: tree would depend on ``num_processes``.
+        self._init_fused()
+        #: One batch's device work at a time (detect, crop and parse).
+        #: ``process_dir``'s worker threads overlap host decode, resize and
+        #: encode with it.  Batches run together only queue on the card and
+        #: add up their peak memory (~19 GiB for 16 images at a 1024²
+        #: interim; four at once reached 35–74 GB on an 80 GB H100), and
+        #: near its limit cuDNN may pick other algorithms, whose f32 sums
+        #: round differently: the tree would depend on ``num_processes``.
         self._device_lock = threading.Lock()
 
     def _check_ported(self):
         """Raises for configurations whose paths are not ported yet."""
         missing = []
-        if self.landmarks is not None or self.det_threshold is None:
-            missing.append("landmark-file and landmark-free modes")
+        if self.landmarks is not None:
+            missing.append("the landmark-file mode")
         if self.enh_threshold is not None:
             missing.append("enhancement")
-        if self.attr_groups is not None or self.mask_groups is not None:
-            missing.append("parsing")
         if self.mesh is not None:
             missing.append("meshes")
         if os.environ.get("FCPT_HOST_CROP") == "1":
@@ -175,18 +168,55 @@ class Cropper:
             )
 
     def _init_models(self):
-        """Builds the detector (the only model of the detection path)."""
-        from .models.detection import RetinaFace
+        """Builds the models the configuration asks for.
 
-        self.det_model = RetinaFace(
-            strategy=self.strategy,
-            vis=self.det_threshold,
-            max_faces=self.max_faces,
-            pre_topk=self.pre_topk,
-            auto_grow=self.auto_grow,
-            weights_dir=self.weights_dir,
-            device=self._device,
-        )
+        The detector exists when ``det_threshold`` is set and no landmarks
+        are given, the parser when either grouping is set (the JAX
+        ``_init_models``, ``cropper.py:335-383``).
+        """
+        self.det_model = None
+        self.par_model = None
+        if self.det_threshold is not None and self.landmarks is None:
+            from .models.detection import RetinaFace
+
+            self.det_model = RetinaFace(
+                strategy=self.strategy,
+                vis=self.det_threshold,
+                max_faces=self.max_faces,
+                pre_topk=self.pre_topk,
+                auto_grow=self.auto_grow,
+                weights_dir=self.weights_dir,
+                device=self._device,
+            )
+        if self.attr_groups is not None or self.mask_groups is not None:
+            from .models.parsing import BiSeNet
+
+            self.par_model = BiSeNet(
+                attr_groups=self.attr_groups,
+                mask_groups=self.mask_groups,
+                max_batch_size=self.batch_size,
+                weights_dir=self.weights_dir,
+                device=self._device,
+            )
+
+    def _init_fused(self):
+        """Builds the fused pipeline, which needs the detector."""
+        self._fused = None
+        #: Source shapes granted the fused path (see the module docstring);
+        #: locked, since worker threads race on check-then-add.
+        self._fused_shapes: set = set()
+        self._fused_shapes_lock = threading.Lock()
+        if self.det_model is not None:
+            from .pipeline import FusedPipeline
+
+            self._fused = FusedPipeline(
+                det_model=self.det_model,
+                target_landmarks=self.landmarks_target,
+                output_size=self.output_size,
+                border_mode=self.padding,
+                allow_skew=self.allow_skew,
+                crop_source=self.crop_source,
+            )
 
     def _init_landmarks_target(self):
         """Builds the scaled/centered 5-point alignment target template."""
@@ -196,6 +226,8 @@ class Cropper:
 
     def _fused_eligible(self, shape, count: int) -> bool:
         """Grants/uses the fused path for a source shape (bounded set)."""
+        if self._fused is None:
+            return False
         with self._fused_shapes_lock:
             if shape in self._fused_shapes:
                 return True
@@ -213,8 +245,10 @@ class Cropper:
             np.zeros((0,), np.int64),
         )
 
-    def _fused_process(self, batch: np.ndarray):
-        """The fused path for a uniform group: (crops, landmarks, indices).
+    def _fused_process(self, batch: np.ndarray, return_device_crops: bool = False):
+        """The fused path for a uniform group: (crops, landmarks, indices),
+        and with ``return_device_crops`` the crops on the device (or None;
+        see :meth:`.pipeline.FusedPipeline.process`).
 
         A group below ``batch_size`` is padded to it by repeating its last
         image, as the JAX package pads (``cropper.py:1240-1242``), and only
@@ -225,7 +259,16 @@ class Cropper:
         if n_true < self.batch_size:
             batch, _ = pad_batch_to(batch, self.batch_size)
         with self._device_lock:
-            return self._fused.process(batch, self.resize_size, valid_n=n_true)
+            return self._fused.process(batch, self.resize_size,
+                                       return_device_crops=return_device_crops,
+                                       valid_n=n_true)
+
+    def _parse(self, faces) -> tuple:
+        """(attr_groups, mask_groups) of host crops or device crops."""
+        if self.par_model is None:
+            return None, None
+        with self.stats.stage("parse", len(faces)), self._device_lock:
+            return self.par_model.predict(faces)
 
     # ------------------------------------------------------------------
     # The staged path
@@ -343,7 +386,7 @@ class Cropper:
         return stem + ext
 
     def save_group(self, faces, file_names, output_dir: str):
-        """Writes one group of faces into one directory.
+        """Writes one group of faces (RGB) or masks (2-D) into one directory.
 
         Names come from :meth:`_crop_file_name`; an empty group creates no
         directory.  Under strategy "all" each source's occurrence 0 is
@@ -365,14 +408,33 @@ class Cropper:
             imwrite(os.path.join(output_dir, self._crop_file_name(source, occurrence)), face)
 
     def save_groups(self, faces, file_names, output_dir: str, attr_groups, mask_groups):
-        """Saves faces into the output tree.
+        """Saves faces (and masks) into the attr × mask tree.
 
-        Without grouping everything lands directly in ``output_dir``.  The
-        attribute/mask subtrees need the parser, which is not ported.
+        Counterpart of the JAX ``save_groups`` (``:1023-1068``): no grouping
+        puts everything in ``output_dir``; attribute groups give one
+        sub-directory each; mask groups give ``<mask>`` plus a
+        ``<mask>_mask`` sibling of 0/255 masks; both give
+        ``output_dir/<attr>/<mask>[_mask]`` holding the intersection, in
+        ascending face order.  ``faces`` may be a list of ragged images
+        (the landmark-free mode).
         """
-        if attr_groups is not None or mask_groups is not None:
-            raise NotImplementedError("attribute/mask groups need parsing, not ported yet")
-        self.save_group(faces, file_names, output_dir)
+        n = len(faces)
+        attr_cells = {"": list(range(n))} if attr_groups is None else attr_groups
+        mask_cells = {"": (list(range(n)), None)} if mask_groups is None else mask_groups
+        for attr_name, attr_members in attr_cells.items():
+            attr_set = set(attr_members)
+            for mask_name, (mask_members, masks) in mask_cells.items():
+                # ``pos`` is a member's row in the mask group's mask stack.
+                cell = sorted((face_i, pos) for pos, face_i in enumerate(mask_members)
+                              if face_i in attr_set)
+                if not cell:
+                    continue
+                members = [face_i for face_i, _ in cell]
+                names = [file_names[i] for i in members]
+                cell_dir = os.path.join(output_dir, attr_name, mask_name)
+                self.save_group([faces[i] for i in members], names, cell_dir)
+                if masks is not None:
+                    self.save_group(masks[[pos for _, pos in cell]], names, cell_dir + "_mask")
 
     # ------------------------------------------------------------------
     # Entry points
@@ -389,11 +451,19 @@ class Cropper:
 
         Returns:
             Tuple of uint8 crops (F, Ho, Wo, 3), int64 face→image indices
-            (F,), and the (attr_groups, mask_groups) pair — (None, None)
-            while parsing is not ported.
+            (F,), and the (attr_groups, mask_groups) pair of the crops
+            (None elements when grouping is not configured).
+
+        Raises:
+            ValueError: Without a detector (the landmark-free mode).
         """
         if isinstance(images, np.ndarray):
             images = list(images)
+        if self.det_model is None:
+            raise ValueError(
+                "process_images requires an active detector "
+                "(det_threshold must be set and landmarks must be None)."
+            )
         if len(images) == 0:
             return (*self._empty(), (None, None))
         uniform = len({im.shape for im in images}) == 1
@@ -401,20 +471,46 @@ class Cropper:
             crops, _lm, indices = self._fused_process(np.stack(images))
         else:
             crops, indices = self._detect_crop_staged(images)
-        return crops, indices, (None, None)
+        groups = self._parse(crops) if len(crops) else (None, None)
+        return crops, indices, groups
+
+    def _process_landmark_free(self, images, file_names, output_dir: str):
+        """The landmark-free mode: whole images pass through to the tree.
+
+        Counterpart of the JAX ``process_batch``'s no-crop branch
+        (``:1354-1366``, ``:1420-1453``): with groups set, the originals
+        are parsed whole, so they must share one shape.
+        """
+        groups = (None, None)
+        if self.par_model is not None:
+            if len({im.shape for im in images}) > 1:
+                raise ValueError(
+                    "Parsing without cropping requires all images to "
+                    "share dimensions; resize them or enable cropping "
+                    "(set det_threshold or provide landmarks)."
+                )
+            groups = self._parse(np.stack(images))
+        with self.stats.stage("save", len(images)):
+            self.save_groups(images, np.asarray(file_names), output_dir, *groups)
 
     def process_batch(self, file_names: list[str], input_dir: str, output_dir: str):
-        """Reads, detects and crops, and saves one batch of files.
+        """Reads, detects and crops, parses, and saves one batch of files.
 
-        Counterpart of the detection branch of the JAX ``process_batch``
-        (``:1132-1353``): images are grouped by decoded shape; groups that
-        :meth:`_fused_eligible` grants run the fused path, the rest the
-        staged path.  Oversized JPEGs decode at a reduced DCT scale, never
-        below ``max(resize_size)``.
+        Counterpart of the JAX ``process_batch`` (``:1132-1453``) without
+        landmark files, enhancement and packed sources: images are grouped
+        by decoded shape; groups that :meth:`_fused_eligible` grants run
+        the fused path, the rest the staged path.  Oversized JPEGs decode
+        at a reduced DCT scale, never below ``max(resize_size)``.  With one
+        fused group and nothing staged, the parser reads that group's crops
+        on the device; otherwise the host crops.
         """
+        target_max = None if self.det_model is None else max(self.resize_size)
         with self.stats.stage("read", len(file_names)):
-            images, file_names = read_images(file_names, input_dir, max(self.resize_size))
+            images, file_names = read_images(file_names, input_dir, target_max)
         if len(images) == 0:
+            return
+        if self.det_model is None:
+            self._process_landmark_free(images, file_names, output_dir)
             return
 
         by_shape: dict[tuple, list[int]] = defaultdict(list)
@@ -427,10 +523,17 @@ class Cropper:
             else:
                 staged_ids.extend(ids)
 
+        # The fused pipeline hands one group's crops over on the device.
+        handoff = self.par_model is not None and len(fused_groups) == 1 and not staged_ids
+        dev_crops = None
         crops_parts, idx_parts = [], []
         for ids in fused_groups:
             with self.stats.stage("detect+crop", len(ids)):
-                crops, _lm, loc = self._fused_process(np.stack([images[i] for i in ids]))
+                result = self._fused_process(np.stack([images[i] for i in ids]),
+                                             return_device_crops=handoff)
+            crops, _lm, loc = result[:3]
+            if handoff:
+                dev_crops = result[3]
             if len(crops):
                 crops_parts.append(crops)
                 idx_parts.append(np.asarray(ids)[loc])
@@ -443,8 +546,11 @@ class Cropper:
             return
         crops = np.concatenate(crops_parts)
         indices = np.concatenate(idx_parts)
+        # The handoff tensor is a power-of-two bucket whose extra rows
+        # repeat the last face: the parser gets exactly the F real rows.
+        groups = self._parse(crops if dev_crops is None else dev_crops[: len(crops)])
         with self.stats.stage("save", len(crops)):
-            self.save_groups(crops, np.asarray(file_names)[indices], output_dir, None, None)
+            self.save_groups(crops, np.asarray(file_names)[indices], output_dir, *groups)
 
     def process_dir(
         self,

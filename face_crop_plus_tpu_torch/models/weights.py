@@ -6,9 +6,11 @@ are read, in the JAX package's search order:
 * ``<model>.npz`` — the JAX package's converted archive: HWIO conv kernels,
   BatchNorm folded to ``<prefix>.scale``/``<prefix>.bias``
   (:func:`from_jax_params` turns it into a state dict);
-* the reference's ``.pth`` checkpoint (``retinaface_detector.pth``) —
-  a raw torch state dict whose BatchNorms are folded here
-  (:func:`convert_state_dict`); conv kernels are already OIHW.
+* the reference's ``.pth`` checkpoint (``retinaface_detector.pth``,
+  ``bise_parser.pth``) — a raw torch state dict whose BatchNorms are folded
+  here (:func:`convert_state_dict`); conv kernels are already OIHW.  Keys
+  the network does not have (a training-time auxiliary head) are dropped,
+  as the JAX package never reads them; a missing key raises at load.
 
 Each is looked for in ``weights_dir`` first, then in ``FCPT_CACHE_DIR`` (or
 ``~/.cache/face_crop_plus_tpu``).  The port never downloads: when nothing
@@ -30,7 +32,7 @@ UPSTREAM_URL_ROOT = (
 )
 
 #: Reference checkpoint filenames per model.
-PTH_FILENAMES = {"retinaface": "retinaface_detector.pth"}
+PTH_FILENAMES = {"retinaface": "retinaface_detector.pth", "bisenet": "bise_parser.pth"}
 
 BN_EPS = 1e-5
 
@@ -147,7 +149,8 @@ def find_weights(
             sd = torch.load(pth, map_location="cpu", weights_only=True)
             if isinstance(sd, dict) and "state_dict" in sd:
                 sd = sd["state_dict"]
-            return convert_state_dict(sd)
+            wanted = model.state_dict()
+            return {k: v for k, v in convert_state_dict(sd).items() if k in wanted}
     return None
 
 

@@ -12,6 +12,9 @@ parameter names (which mirror the reference's torch module paths), so one
 * Random init draws He-normal conv kernels, zero biases and unit BN scale
   from ``np.random.default_rng(seed)`` in parameter-creation order, the
   same draws the JAX package's ``Params`` init mode makes.
+
+The JAX module's ``upsample2x_nearest`` and ``downscale4x_bicubic`` serve
+only the enhancer, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,11 +65,17 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.T
     return F.max_pool2d(x, window, stride, padding)
 
 
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Global average pooling of an NCHW tensor to (N, C, 1, 1), f32 sums."""
+    return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+
+
 def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Torch-legacy nearest resize of an NCHW tensor: src = floor(i*in/out).
 
     Two axis gathers with the JAX package's float32 index arithmetic, so the
-    source rows and columns are the same for any size ratio.
+    source rows and columns are the same for any size ratio.  The gathers
+    copy values, so integer label maps keep their dtype.
     """
     h, w = x.shape[2], x.shape[3]
     oh, ow = size
@@ -131,6 +140,24 @@ def resize_bilinear(
     mx = mx.to(device=x.device, dtype=x.dtype)
     y = torch.einsum("oh,nhwc->nowc", my, x)
     return torch.einsum("pw,nhwc->nhpc", mx, y)
+
+
+def resize_bilinear_nchw(
+    x: torch.Tensor, size: tuple[int, int], align_corners: bool = False
+) -> torch.Tensor:
+    """:func:`resize_bilinear` of an NCHW float tensor.
+
+    The same interpolation matrices, rows first, as two batched products
+    over the last two axes (the parser's channel-first logits need no
+    transpose).
+    """
+    h, w = x.shape[2], x.shape[3]
+    oh, ow = size
+    my = torch.from_numpy(_linear_resize_matrix(h, oh, align_corners))
+    mx = torch.from_numpy(_linear_resize_matrix(w, ow, align_corners))
+    my = my.to(device=x.device, dtype=x.dtype)
+    mx = mx.to(device=x.device, dtype=x.dtype)
+    return torch.matmul(torch.matmul(my, x), mx.t())
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -4,14 +4,16 @@ Both CLIs run as subprocesses on the same mixed directory with the same
 ``-w`` weights (the tamed detector written as ``retinaface.npz``, the file
 both packages read) and ``-d cpu``; the trees must have equal names and
 pixels within ±1 (``-hc 0``: both warp in f32).  Argument parsing,
-including the ``-c`` JSON layering, must give the JAX CLI's kwargs, and
-flags for paths the port does not have yet must raise.
+including the ``-c`` JSON layering, must give the JAX CLI's kwargs; the
+landmark-free mode (``-dt -1``) and parsing (``-ag``, ``-mg``) write the JAX
+CLI's tree; flags for paths the port does not have yet must raise.
 """
 
 import json
 import os
 import subprocess
 import sys
+import warnings
 
 import pytest
 
@@ -19,6 +21,7 @@ import face_crop_plus_tpu.__main__ as jax_cli
 import face_crop_plus_tpu_torch.__main__ as cli
 
 from torch_parity import (
+    check_parse_tree,
     nfkd_ascii,
     read_tree,
     tree_max_diff,
@@ -32,9 +35,15 @@ ENV_SWITCHES = ("FCPT_HOST_CROP", "FCPT_PACK_UPLOAD", "FCPT_PACK_FETCH")
 
 @pytest.fixture
 def clean_env(monkeypatch):
-    """The CLIs write their wire flags into the environment; undo that."""
+    """The CLIs write their wire flags into the environment; undo that.
+
+    ``setenv`` first: ``delenv`` of an absent variable records nothing, so
+    a value the CLI sets would outlive the test and reach later test files
+    of the same worker.
+    """
     for k in ENV_SWITCHES:
-        monkeypatch.delenv(k, raising=False)
+        monkeypatch.setenv(k, "")
+        monkeypatch.delenv(k)
 
 
 @pytest.mark.parametrize("strategy", ["largest", "all"])
@@ -101,10 +110,7 @@ def test_requires_input_dir():
     "extra",
     [
         ["-l", "lm.txt"],
-        ["-dt", "-1"],  # no detector, no landmarks: the landmark-free mode
         ["-et", "0.1"],
-        ["-ag", '{"g": [1]}'],
-        ["-mg", '{"m": [1]}'],
         ["-hc", "1"],
         ["-pu", "1"],
         ["-pf", "1"],
@@ -115,6 +121,51 @@ def test_unported_flags_raise(clean_env, tmp_path, extra):
     with pytest.raises(NotImplementedError):
         cli.main(["-i", str(tmp_path), "-d", "cpu", *extra])
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["-dt", "-1"],  # no detector, no landmarks: the landmark-free mode
+        ["-ag", '{"p3": [3], "no3": [-3]}'],
+        ["-mg", '{"face": [3, 12, 17], "c14": [14]}'],
+    ],
+)
+def test_ported_flags_run(clean_env, tmp_path, monkeypatch, extra):
+    """Flags once refused run and write the JAX CLI's tree: images passed
+    through whole, or crops in their ``<attr>``/``<mask>[_mask]`` groups."""
+    from face_crop_plus_tpu.models import parsing as jp
+    from face_crop_plus_tpu_torch.models import parsing as tp
+
+    monkeypatch.setenv("FCPT_HOST_CROP", "0")
+    monkeypatch.setenv("FCPT_CACHE_DIR", str(tmp_path / "no-cache"))
+    src, wdir = str(tmp_path / "in"), str(tmp_path / "w")
+    write_mixed_dir(src)
+    if extra[0] != "-dt":
+        # Parsing is the slow part: both parsers run at a 128² inference
+        # size (the 512² parse is held in tests/test_torch_parsing.py), on
+        # two fused 72×60 files and one staged file.
+        for module in (jp, tp):
+            monkeypatch.setattr(module, "_INFER_SIZE", 128)
+        for f in os.listdir(src):
+            if f not in ("a00.jpg", "a01.jpg", "b0.jpg"):
+                os.remove(os.path.join(src, f))
+    write_tamed_npz(wdir)
+    argv = ["-i", src, "-r", "64", "-s", "64", "-dt", "0", "-b", "4", "-f", "png", "-w", wdir,
+            "-d", "cpu", "-hc", "0", *extra]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jax_cli.main(argv + ["-o", str(tmp_path / "jax")])
+        cli.main(argv + ["-o", str(tmp_path / "port")])
+    ref, ours = read_tree(str(tmp_path / "jax")), read_tree(str(tmp_path / "port"))
+    check_parse_tree(ours, ref)
+    dirs = {os.path.dirname(k) for k in ours}
+    if extra[0] == "-dt":
+        assert dirs == {""} and tree_max_diff(ours, ref) == 0 and len(ours) == 11
+        assert {v.shape[:2] for v in ours.values()} >= {(72, 60), (50, 90)}
+    else:
+        assert dirs == ({"p3"} if extra[0] == "-ag" else {"face", "face_mask"})
+        assert len(ours) == 3 * (1 if extra[0] == "-ag" else 2)
 
 
 def test_clean_names_pre_pass(clean_env, tmp_path, monkeypatch):

@@ -68,14 +68,58 @@ def test_default_device_raises_without_cuda():
     [
         dict(landmarks="lm.txt"),
         dict(enh_threshold=0.01),
-        dict(attr_groups={"g": [1]}),
-        dict(det_threshold=None),
         dict(mesh=object()),
     ],
 )
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError):
         face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(attr_groups={"p3": [3], "no3": [-3], "p15": [15]}),
+        dict(det_threshold=None),
+    ],
+)
+def test_ported_paths_run(monkeypatch, tmp_path, kw):
+    """Parsing and the landmark-free mode, once refused, run as JAX's do.
+
+    Both parsers run at a 128² inference size (the 512² parse is held in
+    ``tests/test_torch_parsing.py``)."""
+    from face_crop_plus_tpu.models import parsing as jp
+    from face_crop_plus_tpu_torch.models import parsing as tp
+    from face_crop_plus_tpu_torch.utils.io import imwrite
+
+    from torch_parity import read_tree, smooth_image, tree_max_diff
+
+    for module in (jp, tp):
+        monkeypatch.setattr(module, "_INFER_SIZE", 128)
+
+    j, t = _pair(monkeypatch, **{**dict(output_size=64, resize_size=64, det_threshold=-1.0,
+                                        batch_size=4, output_format="png"), **kw})
+    rng = np.random.default_rng(13)
+    batch = np.stack([smooth_image(rng, 72, 60) for _ in range(4)])
+    if t.det_model is None:
+        assert t._fused is None and t.par_model is None
+        for c in (j, t):
+            with pytest.raises(ValueError, match="active detector"):
+                c.process_images(batch)
+        for i, im in enumerate(batch):
+            imwrite(str(tmp_path / f"{i}.png"), im)
+        trees = {}
+        for name, c in (("jax", j), ("port", t)):
+            c.process_dir(str(tmp_path), str(tmp_path / name), desc=None)
+            trees[name] = read_tree(str(tmp_path / name))
+        assert len(trees["port"]) == 4 and tree_max_diff(trees["port"], trees["jax"]) == 0
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = j.process_images(batch)
+        ours = t.process_images(batch)
+    assert ours[2] == ref[2] and ours[2][1] is None and ours[2][0]["p3"] == [0, 1, 2, 3]
+    assert int(np.abs(ours[0].astype(np.int16) - ref[0].astype(np.int16)).max()) <= 1
 
 
 @pytest.mark.parametrize("var", ["FCPT_HOST_CROP", "FCPT_PACK_UPLOAD", "FCPT_PACK_FETCH"])
@@ -214,6 +258,7 @@ def test_import_pulls_in_no_jax():
         "import sys, face_crop_plus_tpu_torch, face_crop_plus_tpu_torch.pipeline\n"
         "import face_crop_plus_tpu_torch.ops.cuda.nms, face_crop_plus_tpu_torch.ops.cuda.warp\n"
         "import face_crop_plus_tpu_torch.cropper, face_crop_plus_tpu_torch.__main__\n"
+        "import face_crop_plus_tpu_torch.models.parsing\n"
         "import face_crop_plus_tpu_torch.utils.io, face_crop_plus_tpu_torch.utils.native_io\n"
         "import face_crop_plus_tpu_torch.utils.names, face_crop_plus_tpu_torch.utils.profiling\n"
         "from face_crop_plus_tpu_torch.utils import native_io\n"

@@ -50,6 +50,51 @@ def tamed_params(seed: int = 1) -> dict[str, np.ndarray]:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def jax_bisenet_params() -> dict[str, np.ndarray]:
+    """The JAX package's BiSeNet random-init dict (key set and shapes)."""
+    from face_crop_plus_tpu.models.parsing import BiSeNet
+
+    return BiSeNet._random_init()
+
+
+#: Settings of :func:`tamed_bisenet_params`: conv gain, BN scale, bias
+#: spread and the gain of the final 1x1 class conv.  The random-init parser
+#: (gain 2, BN scale 1, zero biases) gives logits whose top two often tie
+#: within the two packages' rounding; these values spread the logits to
+#: |x| ~ 10 over ~10 classes a face, with the top-2 margin above 1e-3 at
+#: 99.9 % of pixels, far above the packages' logit difference (< 1.3e-5).
+TAMED_BISENET = dict(gain=2.0, bn_scale=0.7, bias=0.3, head_gain=16.0)
+
+
+@functools.lru_cache(maxsize=2)
+def tamed_bisenet_params(seed: int = 1) -> dict[str, np.ndarray]:
+    """JAX-layout BiSeNet params with the random-init key set, tamed."""
+    rng = np.random.default_rng(seed)
+    t = TAMED_BISENET
+    out = {}
+    for key, val in jax_bisenet_params().items():
+        if val.ndim == 4:
+            gain = t["head_gain"] if key == "conv_out.conv_out.weight" else t["gain"]
+            w = rng.normal(size=val.shape) * np.sqrt(gain / np.prod(val.shape[:3]))
+            out[key] = w.astype(np.float32)
+        elif key.endswith(".scale"):
+            out[key] = np.full(val.shape, t["bn_scale"], np.float32)
+        else:
+            out[key] = (rng.normal(size=val.shape) * t["bias"]).astype(np.float32)
+    return out
+
+
+def torch_bisenet(params: dict[str, np.ndarray]):
+    """A port :class:`BiSeNetNet` on the CPU holding ``params``."""
+    from face_crop_plus_tpu_torch.models.parsing import BiSeNetNet
+    from face_crop_plus_tpu_torch.models.weights import from_jax_params
+
+    net = BiSeNetNet()
+    net.load_state_dict(from_jax_params(params, net), strict=True)
+    return net.eval().requires_grad_(False)
+
+
 def torch_net(params: dict[str, np.ndarray]):
     """A port :class:`RetinaFaceNet` on the CPU holding ``params``."""
     from face_crop_plus_tpu_torch.models.detection import RetinaFaceNet
@@ -72,7 +117,8 @@ def cropper_pair(**kw):
 
     The caller sets ``FCPT_HOST_CROP=0`` first: by default the JAX Cropper
     warps on the host when its native kernel is built, and the port
-    reproduces the device warp.
+    reproduces the device warp.  Each model either Cropper has (detector,
+    parser) gets its tamed weights.
     """
     import warnings
 
@@ -80,14 +126,16 @@ def cropper_pair(**kw):
     import face_crop_plus_tpu_torch
     from face_crop_plus_tpu_torch.models.weights import from_jax_params
 
-    p = tamed_params()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         j = face_crop_plus_tpu.Cropper(device="cpu", **kw)
         t = face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
-    j.det_model.params = jax_params(p)
-    net = t.det_model.net
-    net.load_state_dict(from_jax_params(p, net), strict=True)
+    models = [(j.det_model, t.det_model, tamed_params()),
+              (j.par_model, t.par_model, tamed_bisenet_params())]
+    for jm, tm, p in models:
+        if jm is not None:
+            jm.params = jax_params(p)
+            tm.net.load_state_dict(from_jax_params(p, tm.net), strict=True)
     return j, t
 
 
@@ -181,13 +229,86 @@ def tree_max_diff(a: dict, b: dict) -> int:
 
 
 def write_tamed_npz(weights_dir: str) -> str:
-    """Writes :func:`tamed_params` as ``retinaface.npz`` (both packages read it)."""
+    """Writes :func:`tamed_params` as ``retinaface.npz`` and
+    :func:`tamed_bisenet_params` as ``bisenet.npz`` (both packages read
+    them); returns the detector's path."""
     import os
 
     os.makedirs(weights_dir, exist_ok=True)
+    np.savez(os.path.join(weights_dir, "bisenet.npz"), **tamed_bisenet_params())
     path = os.path.join(weights_dir, "retinaface.npz")
     np.savez(path, **tamed_params())
     return path
+
+
+def label_margins(logits: np.ndarray) -> np.ndarray:
+    """Top-1 minus top-2 logit along the last axis."""
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+#: Near-tie margin for labels of crops that may differ by ±1 level between
+#: the packages: a one-level change of a few input pixels moved the JAX
+#: logits' top-2 margin by up to 3e-3 (strategy "all", 351 crops of 64²).
+EPS_CROPS = 1e-2
+
+
+def jax_margins(images: np.ndarray, batch: int = 8) -> np.ndarray:
+    """JAX top-2 logit margins of the tamed parser's logits (at its
+    inference size, 512²) at each label pixel of uint8 RGB ``images``
+    (N, H, W, 3): the nearest resize back to (H, W) that
+    ``BiSeNet._parse`` applies to the labels."""
+    import jax.numpy as jnp
+    import torch
+
+    from face_crop_plus_tpu.models import parsing as jp
+    from face_crop_plus_tpu.ops import nn as jnn
+    from face_crop_plus_tpu_torch.ops.nn import resize_nearest
+
+    params = jnn.Params(jax_params(tamed_bisenet_params()))
+    out = []
+    for s in range(0, len(images), batch):
+        x = jnp.asarray(images[s : s + batch], jnp.float32) / 255.0
+        x = jnn.resize_bilinear(x, (jp._INFER_SIZE, jp._INFER_SIZE))
+        x = (x - jnp.array(jp._MEAN, jnp.float32)) / jnp.array(jp._STD, jnp.float32)
+        m = label_margins(np.asarray(jp.bisenet_forward(params, x)))
+        out.append(resize_nearest(torch.from_numpy(m)[:, None], images.shape[1:3])[:, 0].numpy())
+    return np.concatenate(out)
+
+
+def check_parse_tree(ours: dict, ref: dict, eps: float = EPS_CROPS) -> int:
+    """Holds a parse tree (:func:`read_tree` of PNGs) against the JAX one.
+
+    Names must be equal, RGB files within ±1, and every 2-D mask file equal
+    to JAX's except at near-tie pixels of its face: where the JAX margin
+    on the JAX tree's crop (the same name in the ``<mask>`` sibling) is at
+    most ``eps``.  Returns the number of mask pixels that differ.
+    """
+    import os
+
+    assert sorted(ours) == sorted(ref), sorted(set(ours) ^ set(ref))
+    masks = sorted(k for k, v in ref.items() if v.ndim == 2)
+    crops = [k for k in ref if k not in masks]
+    assert tree_max_diff({k: ours[k] for k in crops}, {k: ref[k] for k in crops}) <= 1
+    if not masks:
+        return 0
+    faces, row = [], {}  # a face in several cells is one crop: one forward
+    for k in masks:
+        d, name = os.path.split(k)
+        assert d.endswith("_mask"), k
+        face = ref[os.path.join(d[: -len("_mask")], name)][..., ::-1]  # BGR → RGB
+        row[k] = row.setdefault(face.tobytes() + bytes(str(face.shape), "ascii"), len(faces))
+        if row[k] == len(faces):
+            faces.append(face)
+    margins = jax_margins(np.stack(faces))
+    near = {k: margins[row[k]] <= eps for k in masks}
+    differ = 0
+    for k in masks:
+        assert set(np.unique(ours[k])) <= {0, 255}, k
+        d = ours[k] != ref[k]
+        assert not (d & ~near[k]).any(), k
+        differ += int(d.sum())
+    return differ
 
 
 def nfkd_ascii(s: str) -> str:
