@@ -68,7 +68,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    tree byte for byte; one staged warp call (windows on the host interim)
    bitwise equal to the plain warp.  (c) strategy "all" (at most 4 faces
    an image), one pass.  (d) card vs CPU on 4 fused + 4 staged images,
-   PNG: names equal, pixels within ±1.
+   PNG: names equal, pixels within ±1.  (e) Fused process of n images at
+   several n, and the staged detect of n interims for n = 1…16, unpadded
+   and padded as the Cropper pads it (``STAGED_PAD_SIZES``).
 6. Parsing at full width: BiSeNet (ResNet-18 trunk, context path, feature
    fusion) at 512², 19 classes, seeded tamed weights, batch 16, behind
    phase 3's detector and crops; groups: a positive attribute, a negative
@@ -88,7 +90,27 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    parser their crops on the device (counted, must be > 0).  (d) The
    landmark-free mode through the CLI (``-dt -1 -ag … -mg …``) over the
    directory's uniform originals.
-4. The ``kernels`` JSON line (phase 5's and 6's launches beside the
+7. Enhancement at full width: RRDBNet x4 (23 RRDBs, nf 64, gc 32) with
+   seeded tamed weights (He init through 23 blocks saturates every pixel).
+   (a) One 128² image through the network on the card and on the CPU: the
+   f32 x4 output's difference, the enhanced uint8 within ±1, at least half
+   the pixels strictly inside 1…254.  (b) ``process_images`` on phase 3's
+   first batch with a threshold midway between the 2nd and 3rd smallest
+   mean face factors (2 of 16 gated): one warm-up and 3 timed requests
+   (faces/s, launches, peak memory, the stage split with "enhance"), one
+   gated 1024² interim through ``enhance_device`` alone (ms, multiply-adds
+   a pixel counted by conv hooks, TFLOP/s, the f32 bound, a profiled
+   call's top kernels); the non-gated crops bitwise equal to the same call
+   without an enhancer.  (c) A ragged 3-image ``process_images`` (the
+   staged path) with one image gated, card vs CPU at a 128² interim: crops
+   within ±1, ±2 on the gated face.  (d) ``process_dir`` over phase 5's
+   directory with a threshold gating 3 images (from a warm-up pass's
+   recorded factors), 1 and 4 threads: trees byte-equal, faces/s.  (e) The
+   landmark-free CLI ``-dt -1 -et 1`` over 16 uniform originals and the
+   2400×1800 file: every image enhanced, peak memory.  (f) A diagnostic:
+   TF32 allowed inside the enhancer, its time and its level differences
+   from f32.  The phase's wall time.
+4. The ``kernels`` JSON line (phase 5's, 6's and 7's launches beside the
    others), the card line, and the ``ok`` line last.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
@@ -936,6 +958,32 @@ def fused_batch_sizes(cropper, src, names, sizes, card):
                 log(f"    {us:12.3f} us  x{count:4d}  {name[:110]}")
 
 
+def staged_batch_sizes(cropper, src, names, sizes, card):
+    """The staged detect of n host-resized interims for each n: ms of the
+    detector on n rows (CUDA events after one warm-up call, 3 calls) and on
+    the batch the Cropper pads n to (:meth:`Cropper._staged_pad_size`).
+    Returns {n: (unpadded ms, pad size, padded ms)}."""
+    from face_crop_plus_tpu_torch.utils.batching import as_batch
+    from face_crop_plus_tpu_torch.utils.io import read_images
+
+    images, _ = read_images(names[: max(sizes)], src, max(cropper.resize_size))
+    batch, _, _ = as_batch(images, cropper.resize_size)
+    dev = torch.from_numpy(batch).to(cropper._device)
+    clock = Clock(cropper._device)
+    table = {}
+    with cropper._device_lock:
+        for n in sizes:
+            m = cropper._staged_pad_size(n)
+            padded = torch.cat([dev[:n], dev[n - 1 : n].expand(m - n, *dev.shape[1:])])
+            ms = clock.ms(lambda: cropper.det_model.predict(dev[:n]), reps=3, warmup=1)  # noqa: B023
+            pad_ms = ms if m == n else clock.ms(
+                lambda: cropper.det_model.predict(padded), reps=3, warmup=1)  # noqa: B023
+            table[n] = (ms, m, pad_ms)
+            log(f"  [{card}] (e) staged detect of {n} interims: unpadded {ms:.6f} ms; padded "
+                f"to {m} (the Cropper's call) {pad_ms:.6f} ms")
+    return table
+
+
 def phase5_directory(device, card, rehearse):
     """The directory pipeline at full width; see the module docstring.
 
@@ -1064,8 +1112,10 @@ def phase5_directory(device, card, rehearse):
         f"{len(readable) / sec:.6f} faces/s, peak device memory {peak} B; against the "
         f"one-thread tree (files differing, max pixel |diff|): "
         f"{tree_diff(trees[(1, 0)], os.path.join(work, 'unlocked'))}")
-    fused_batch_sizes(c, src, [n for n in readable if "_" not in n[4:]],
-                      (16, 15, 12, 10, 8, 4, 2, 1) if not rehearse else (4, 3, 1), card)
+    uniform = [n for n in readable if "_" not in n[4:]]
+    fused_batch_sizes(c, src, uniform, (16, 15, 12, 10, 8, 4, 2, 1) if not rehearse else (4, 3, 1),
+                      card)
+    staged_table = staged_batch_sizes(c, src, uniform, range(1, bs + 1), card)
     del c
 
     # (c) strategy "all", one pass, at most 4 faces an image (the tamed
@@ -1119,7 +1169,8 @@ def phase5_directory(device, card, rehearse):
     return dict(nms=dir_nms + all_nms, warp=dir_warp + all_warp, staged_nms=staged[0],
                 staged_warp=staged[1], staged_err=staged_err,
                 faces_per_s={p: r for p, r in rates.items()},
-                work=work, src=src, wdir=wdir, readable=readable, kw=kw)
+                work=work, src=src, wdir=wdir, readable=readable, kw=kw,
+                staged_table=staged_table)
 
 
 # ---------------------------------------------------------------------------
@@ -1437,6 +1488,402 @@ def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
                 dir_warp=dir_launches[1], fps=fps, parse_ms=parse_ms)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: enhancement
+# ---------------------------------------------------------------------------
+
+#: Tamed enhancer weights (the recipe of ``tests/torch_parity.py``): conv
+#: gain, bias spread, the gain and bias of ``conv_last``; ``trunk_conv``'s
+#: gain is 1.44^-blocks.  Each RRDB returns ~1.2x its input, so He-init
+#: weights through 23 blocks saturate every pixel at 0 or 255 and make every
+#: comparison vacuous; these centre the output on mid-grey, unsaturated.
+RRDB_TAMING = (1.0, 0.01, 0.5, 0.5)
+#: Multiply-adds a pixel of the full network, counted from its shapes: the
+#: dense blocks 23 x 3 x (64+96+128+160)·32·9 + 192·64·9, conv_first and
+#: trunk_conv, and the x4 tail (upconv1 at 2x; upconv2, HRconv, conv_last
+#: at 4x).  The script counts it again with conv hooks.
+RRDB_MACS_PER_PIXEL = 17_926_848
+
+
+def tamed_rrdb_state_dict(net, seed: int = 1):
+    """Seeded enhancer weights after :data:`RRDB_TAMING`."""
+    gain, bias, last_gain, last_bias = RRDB_TAMING
+    blocks = len(net.RRDB_trunk)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, ref in net.state_dict().items():
+        if ref.ndim == 4:
+            fan_in = ref.shape[1] * ref.shape[2] * ref.shape[3]
+            g = {"conv_last.weight": last_gain, "trunk_conv.weight": 1.44 ** -blocks}.get(key, gain)
+            # Drawn HWIO, as the tests' JAX-layout recipe draws them.
+            w = rng.normal(size=(ref.shape[2], ref.shape[3], ref.shape[1], ref.shape[0]))
+            w = (w * np.sqrt(g / fan_in)).transpose(3, 2, 0, 1)
+            out[key] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+        elif key == "conv_last.bias":
+            out[key] = torch.full(tuple(ref.shape), last_bias)
+        else:
+            out[key] = torch.from_numpy((rng.normal(size=tuple(ref.shape)) * bias).astype(np.float32))
+    return out
+
+
+def tame_enhancer(model, blocks: int):
+    """Gives ``model`` (an ``RRDBNet``) a tamed ``blocks``-block network."""
+    from face_crop_plus_tpu_torch.models.enhancement import RRDBNetwork
+
+    net = RRDBNetwork(blocks)
+    net.load_state_dict(tamed_rrdb_state_dict(net))
+    model.num_blocks = blocks
+    model.net = net.to(model.device).eval().requires_grad_(False)
+    return model
+
+
+def rrdb_macs_per_pixel(net, device) -> int:
+    """Multiply-adds of one input pixel, from conv hooks on a 16² forward
+    (every convolution is stride 1; the tail's grow with the input)."""
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    total = [0]
+
+    def hook(m, _inp, out):
+        total[0] += out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in convs]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1, 3, 16, 16), device=device))
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0] // 256
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 on for cuDNN convolutions and CUDA matmuls (a diagnostic)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def level_diff(a, b) -> tuple[int, float]:
+    """(largest uint8 difference, share of differing values)."""
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    return (int(d.max()), float((d > 0).mean())) if d.size else (0, 0.0)
+
+
+def midway(factors, k: int) -> float:
+    """A gate threshold midway between the k-th and (k+1)-th smallest finite
+    factors: it gates k images, and no factor sits near it."""
+    f = np.sort(np.asarray(factors)[np.isfinite(factors)])
+    return float(f[k - 1] + f[k]) / 2
+
+
+def fused_factors(cropper, batch):
+    """Each image's mean face factor, as the fused gate computes it, from one
+    detect pass."""
+    from face_crop_plus_tpu_torch.models.enhancement import mean_face_factor
+    from face_crop_plus_tpu_torch.pipeline import interim_geometry
+
+    lm, idx = cropper._fused.detect_only(batch, cropper.resize_size)
+    scale, _ = interim_geometry(batch.shape[1], batch.shape[2], cropper.resize_size)
+    iw, ih = cropper.resize_size
+    return mean_face_factor(lm * scale, idx, len(batch), (ih, iw))
+
+
+def count_enhanced(model) -> list:
+    """Wraps ``model.enhance_device`` to count the rows it enhances."""
+    rows = [0]
+    real = model.enhance_device
+
+    def enhance_device(images):
+        rows[0] += images.shape[0]
+        return real(images)
+
+    model.enhance_device = enhance_device
+    return rows
+
+
+def phase7_enhancement(batches, p5, device, card, rehearse):
+    """Gated RRDBNet x4 enhancement at full width; see the module docstring.
+
+    Returns the kernels' launches on the fused requests and the directory
+    passes.
+    """
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch import pipeline
+    from face_crop_plus_tpu_torch.models import enhancement as enh_mod
+    from face_crop_plus_tpu_torch.models.enhancement import RRDBNet, RRDBNetwork
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.ops.warp import to_uint8
+    from face_crop_plus_tpu_torch.utils.device import f32_precision
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+    from face_crop_plus_tpu_torch.utils.profiling import PipelineStats
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    blocks = 1 if rehearse else 23
+    n = batches[0].shape[0]
+    out, resize = (32, 64) if rehearse else (256, 1024)
+    gate_k = 2 if n > 2 else 1
+    clock = Clock(device)
+
+    # (a) one image through the network on the card and on the CPU.
+    side = 32 if rehearse else 128
+    dev_m = tame_enhancer(RRDBNet(device=device, num_blocks=blocks), blocks)
+    cpu_m = tame_enhancer(RRDBNet(device="cpu", num_blocks=blocks), blocks)
+    img = photo_like(np.random.default_rng(7), side, side)[None]
+    x = torch.from_numpy(img).permute(0, 3, 1, 2).float() / 255.0
+    with f32_precision(), torch.no_grad():
+        hr_d = dev_m.net(x.to(device)).cpu()
+        hr_c = cpu_m.net(x)
+    u_d = dev_m._sr_uint8(torch.from_numpy(img).to(device)).cpu().numpy()
+    u_c = cpu_m._sr_uint8(torch.from_numpy(img)).numpy()
+    lv, share = level_diff(u_d, u_c)
+    inside = float(((u_d > 0) & (u_d < 255)).mean())
+    log(f"  (a) {device} vs cpu, one {side}² image through {blocks} RRDBs (nf 64, gc 32): "
+        f"x4 output {tuple(hr_d.shape)} max |diff| {float((hr_d - hr_c).abs().max()):.6g} "
+        f"(max |x| {float(hr_c.abs().max()):.6g}); enhanced uint8 max |diff| {lv}, differing "
+        f"share {share:.9f}; pixels strictly inside 1..254: {inside:.6f}; mean |enhanced - "
+        f"input| {float(np.abs(u_d.astype(np.int16) - img).mean()):.6f} levels")
+    if lv > 1 or inside < 0.5:
+        raise SystemExit("FAIL: enhancement on the card differs from the CPU by more than 1 "
+                         "level, or the tamed output saturates")
+    del dev_m, cpu_m, hr_d, hr_c
+
+    # (b) fused process_images, 2 of n gated.
+    c = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="largest",
+                det_threshold=-1.0, batch_size=n, enh_threshold=0.0)
+    # Tamed detector weights: the random-init detector's largest faces span
+    # thousands of pixels, and their crops sample only the border.
+    c.det_model.net.load_state_dict(tamed_state_dict(c.det_model.net))
+    enh = tame_enhancer(c.enh_model, blocks)
+    batch = batches[0]
+    factors = fused_factors(c, batch)
+    thr = midway(factors, gate_k)
+    enh.min_face_factor = c.enh_threshold = thr
+    gated = np.nonzero(factors <= thr)[0]
+    log(f"  (b) factors (sorted) {np.round(np.sort(factors), 9).tolist()}; threshold {thr:.9g} "
+        f"gates images {gated.tolist()}")
+    if len(gated) != gate_k:
+        raise SystemExit(f"FAIL: the threshold gates {len(gated)} images, not {gate_k}")
+    enhanced_rows = count_enhanced(enh)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    seconds = []
+    for r in range(4):
+        t0 = time.perf_counter()
+        crops, indices, _ = c.process_images(batch)
+        seconds.append(time.perf_counter() - t0)
+        if crops.shape != (n, out, out, 3) or not np.array_equal(indices, np.arange(n)):
+            raise SystemExit(f"FAIL: enhanced request {r}: crops {crops.shape}, indices {indices}")
+    launches = (nms_kern.launches, warp_kern.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if enhanced_rows[0] != 4 * gate_k or (not rehearse and min(launches) < 4):
+        raise SystemExit(f"FAIL: {enhanced_rows[0]} rows enhanced over 4 requests, launches "
+                         f"{launches}")
+    fps = 3 * n / sum(seconds[1:])
+    log(f"  [{card}] (b) {fps:.6f} faces/s over 3 requests after one warm-up, {gate_k} of {n} "
+        f"images gated; request seconds " + ", ".join(f"{s:.6f}" for s in seconds)
+        + f"; K1 launches {launches[0]}, warp launches {launches[1]}; peak device memory "
+        f"{peak} B ({peak / 2**30:.6f} GiB)")
+    timer = StageTimer(device)
+    c._fused.stage_timer = timer
+    t0 = time.perf_counter()
+    c.process_images(batch)
+    total = (time.perf_counter() - t0) * 1e3
+    c._fused.stage_timer = None
+    log(f"  [{card}] (b) stage split (ms, synchronised host clocks): "
+        + ", ".join(f"{k} {timer.ms.get(k, 0.0):.6f}" for k in c._fused.STAGES)
+        + f"; request {total:.6f}")
+
+    # The enhancer alone on one gated interim row, its work and its bound.
+    interim, _, _ = pipeline.device_resize_pad(torch.from_numpy(batch).to(device), c.resize_size)
+    one = to_uint8(interim[gated[:1].tolist()]).contiguous()
+    del interim
+    ms = clock.ms(lambda: enh.enhance_device(one), reps=2, warmup=1)
+    macs = rrdb_macs_per_pixel(enh.net, device)
+    pixels = one.shape[1] * one.shape[2]
+    flop = 2 * macs * pixels
+    log(f"  [{card}] (b) enhance_device of one {one.shape[1]}x{one.shape[2]} interim: {ms:.6f} ms "
+        f"({blocks} RRDBs); {macs} MAC a pixel counted by conv hooks (shapes: "
+        f"{RRDB_MACS_PER_PIXEL} at 23 RRDBs), {flop / 1e12:.6f} TFLOP; "
+        f"{flop / (ms * 1e-3) / 1e12:.6f} TFLOP/s; f32 bound {flop / PEAK_F32_FLOPS * 1e3:.6f} ms "
+        f"at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s")
+    if cuda:
+        t0 = time.perf_counter()
+        rows = device_kernels(lambda: enh.enhance_device(one), reps=1)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        busy = sum(r[1] for r in rows)
+        log(f"  [{card}] (b) profiled enhance_device: device time {busy:.3f} us of "
+            f"{wall_us:.3f} us wall (profiler on); {sum(r[2] for r in rows)} launches; top:")
+        for name, us, count in rows[:8]:
+            log(f"    {us:12.3f} us  x{count:4d}  {name[:110]}")
+
+    # Non-gated crops against the same call without an enhancer, bitwise.
+    c._fused.enh = None
+    plain, plain_idx, _ = c.process_images(batch)
+    c._fused.enh = enh
+    keep = ~np.isin(indices, gated)
+    same = np.array_equal(plain[keep], crops[keep]) and np.array_equal(plain_idx, indices)
+    g_lv, _ = level_diff(plain[~keep], crops[~keep])
+    log(f"  (b) non-gated crops vs enh_threshold=None: bitwise equal {same} "
+        f"({int(keep.sum())} crops); gated crops differ from unenhanced by up to {g_lv} levels")
+    if not same or g_lv == 0:
+        raise SystemExit("FAIL: non-gated crops changed, or gated crops were not enhanced")
+
+    # (f) diagnostic: TF32 allowed inside the enhancer only.
+    real_precision = enh_mod.f32_precision
+    enh_mod.f32_precision = tf32_allowed
+    try:
+        tf_ms = clock.ms(lambda: enh.enhance_device(one), reps=2, warmup=1)
+        tf_img = enh.enhance_device(one).cpu().numpy()
+        tf_crops, _, _ = c.process_images(batch)
+    finally:
+        enh_mod.f32_precision = real_precision
+    f32_img = enh.enhance_device(one).cpu().numpy()
+    img_lv, img_share = level_diff(tf_img, f32_img)
+    crop_lv, crop_share = level_diff(tf_crops[~keep], crops[~keep])
+    log(f"  [{card}] (f) diagnostic, TF32 allowed in the enhancer: enhance_device {tf_ms:.6f} ms "
+        f"(f32 {ms:.6f}); enhanced image vs f32 max |diff| {img_lv} levels (share "
+        f"{img_share:.9f}); gated crops vs f32 max |diff| {crop_lv} (share {crop_share:.9f})")
+    del c, enh, one, crops, plain, tf_crops
+
+    # (c) the staged path, card vs CPU: 3 ragged images, one gated.
+    rng = np.random.default_rng(8)
+    ragged = [smooth_batch(rng, (1, *hw, 3))[0] for hw in ((96, 80), (120, 90), (70, 110))]
+    kw = dict(output_size=64, resize_size=32 if rehearse else 128, det_threshold=-1.0,
+              batch_size=4, enh_threshold=0.0, padding="replicate")
+    pair = []
+    for dev in (str(device), "cpu"):
+        cc = Cropper(device=dev, **kw)
+        cc.det_model.net.load_state_dict(tamed_state_dict(cc.det_model.net))
+        tame_enhancer(cc.enh_model, blocks)
+        pair.append(cc)
+    _, _, lm, idx = pair[1]._detect_interim(ragged)
+    side = pair[1].resize_size
+    s_factors = enh_mod.mean_face_factor(lm, idx, 3, (side[1], side[0]))
+    s_thr = midway(s_factors, 1)
+    results = []
+    for cc in pair:
+        cc.enh_model.min_face_factor = s_thr
+        rows = count_enhanced(cc.enh_model)
+        results.append((*cc.process_images(ragged)[:2], rows[0]))
+    (ca, ia, ra), (cb, ib, rb) = results
+    if not np.array_equal(ia, ib) or ca.shape != cb.shape or (ra, rb) != (1, 1):
+        raise SystemExit(f"FAIL: staged card vs CPU: indices {ia} / {ib}, enhanced rows {ra}/{rb}")
+    s_gated = np.isin(ia, np.nonzero(s_factors <= s_thr)[0])
+    lv_g, _ = level_diff(ca[s_gated], cb[s_gated])
+    lv_o, _ = level_diff(ca[~s_gated], cb[~s_gated])
+    log(f"  (c) staged ragged process_images, {device} vs cpu ({kw['resize_size']}² interim, "
+        f"tamed weights): factors {np.round(s_factors, 9).tolist()}, threshold {s_thr:.9g}; "
+        f"{len(ia)} faces, {int(s_gated.sum())} gated; crops max |diff| {lv_g} on gated faces, "
+        f"{lv_o} on the others")
+    if lv_g > 2 or lv_o > 1 or not s_gated.any():
+        raise SystemExit("FAIL: staged enhanced crops on the card differ from the CPU")
+    del pair, results
+
+    # (d) process_dir with enh_threshold over phase 5's directory.
+    src, readable, wdir = p5["src"], p5["readable"], p5["wdir"]
+    # The full network's tamed weights, as the CLI of (e) reads them.
+    write_npz(wdir, "rrdb", tamed_rrdb_state_dict(RRDBNetwork()))
+    cd = Cropper(device=str(device), strategy="largest", enh_threshold=-np.inf, **p5["kw"])
+    tame_enhancer(cd.enh_model, blocks)
+    seen = []
+    real_fused, real_enh = pipeline.mean_face_factor, enh_mod.mean_face_factor
+
+    def recording(*args, **kwargs):
+        seen.append(real_fused(*args, **kwargs))
+        return seen[-1]
+
+    pipeline.mean_face_factor = enh_mod.mean_face_factor = recording
+    try:
+        t0 = time.perf_counter()
+        cd.process_dir(src, os.path.join(p5["work"], "enh_warm"), desc=None)
+        warm = time.perf_counter() - t0
+    finally:
+        pipeline.mean_face_factor, enh_mod.mean_face_factor = real_fused, real_enh
+    all_factors = np.concatenate(seen)
+    d_thr = midway(all_factors, 3)
+    cd.enh_model.min_face_factor = cd.enh_threshold = d_thr
+    rows = count_enhanced(cd.enh_model)
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    digests, rates = {}, {}
+    for n_proc in (1, 4):
+        cd.num_processes = n_proc
+        cd.stats = PipelineStats()
+        before = rows[0]
+        dst = os.path.join(p5["work"], f"enh_p{n_proc}")
+        t0 = time.perf_counter()
+        cd.process_dir(src, dst, desc=None)
+        sec = time.perf_counter() - t0
+        check_tree(dst, readable, p5["kw"]["output_size"], f"enhanced tree p{n_proc}")
+        digests[n_proc] = tree_digest(dst)
+        rates[n_proc] = len(readable) / sec
+        split = ", ".join(f"{k} {v['seconds']:.6f} s/{v['calls']} calls/{v['items']} items"
+                          for k, v in cd.stats.as_dict().items())
+        log(f"  [{card}] (d) process_dir with enh_threshold {d_thr:.9g}, num_processes={n_proc}: "
+            f"{len(readable)} crops in {sec:.6f} s = {rates[n_proc]:.6f} faces/s; "
+            f"{rows[0] - before} images enhanced; stages: {split}")
+    dir_launches = (nms_kern.launches, warp_kern.launches)
+    differ = sum(digests[1].get(f) != digests[4].get(f) for f in set(digests[1]) | set(digests[4]))
+    log(f"  (d) warm-up pass (nothing gated) {warm:.6f} s; {len(all_factors)} factors recorded, "
+        f"{int(np.isfinite(all_factors).sum())} finite; files differing between 1 and 4 threads: "
+        f"{differ}; K1 launches {dir_launches[0]}, warp launches {dir_launches[1]}")
+    if differ or rows[0] != 6 or (not rehearse and min(dir_launches) < 1):
+        raise SystemExit(f"FAIL: enhanced process_dir: {differ} files differ, {rows[0]} images "
+                         "enhanced over 2 passes (3 each expected)")
+    del cd
+
+    # (e) the landmark-free CLI, every image enhanced, a large original too.
+    lf = os.path.join(p5["work"], "enh_lf")
+    os.makedirs(lf)
+    names = [f for f in readable if "_" not in f[4:]][:16] + [
+        next(f for f in readable if f.endswith("_r.jpg"))]
+    for f in names:
+        os.link(os.path.join(src, f), os.path.join(lf, f))
+    lf_out = os.path.join(p5["work"], "enh_lf_out")
+    argv = ["-i", lf, "-o", lf_out, "-dt", "-1", "-et", "1", "-b", str(n), "-w", wdir]
+    if rehearse:
+        argv += ["-d", "cpu"]
+    code = ("import runpy, sys, torch; sys.argv = ['face_crop_plus_tpu_torch'] + sys.argv[1:]; "
+            "runpy.run_module('face_crop_plus_tpu_torch', run_name='__main__'); "
+            "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"FAIL: the landmark-free CLI with -et exited {proc.returncode}:\n"
+                         f"{proc.stderr[-3000:]}")
+    lf_peak = int(proc.stdout.split("PEAK")[-1])
+    got = sorted(os.listdir(lf_out))
+    shapes = {}
+    changed = 0
+    for f in got:
+        a, b = imread_rgb(os.path.join(lf_out, f)), imread_rgb(os.path.join(lf, f))
+        shapes[f] = a.shape
+        changed += int(a.shape == b.shape and np.abs(a.astype(np.int16) - b).mean() > 2)
+    big = names[-1]
+    log(f"  [{card}] (e) CLI `-dt -1 -et 1` over {len(names)} originals ({len(names) - 1} of "
+        f"{shapes.get(names[0])}, one of {shapes.get(big)}): exit 0 in {sec:.3f} s (process "
+        f"start, model init, one pass); {changed} of {len(got)} files visibly enhanced; peak "
+        f"device memory {lf_peak} B ({lf_peak / 2**30:.6f} GiB)")
+    if got != sorted(names) or changed != len(names):
+        raise SystemExit(f"FAIL: landmark-free enhanced tree: {len(got)} files, {changed} enhanced")
+
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 7 wall time {wall:.3f} s")
+    return dict(nms=launches[0], warp=launches[1], dir_nms=dir_launches[0],
+                dir_warp=dir_launches[1], fps=fps, wall=wall)
+
+
 #: f32 operations per output pixel of the warp (coordinates, floor and
 #: fraction, four weights, 3 channels of 4 products and 3 sums, rounding).
 WARP_OPS_PER_PIXEL = 48
@@ -1448,7 +1895,7 @@ def _rows(timings: dict) -> dict:
             for (label, key), t in timings.items()}
 
 
-def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6) -> dict:
+def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -1464,13 +1911,16 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6) -> dict:
         "source": "face_crop_plus_tpu_torch/csrc/warp.cu",
         "replaces": "tools/mosaic_gather_probe.py:40",
         "redesigned": "PR 3",
-        "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"],
+        "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"]
+        + p7["warp"] + p7["dir_warp"],
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
         "launches_directory_staged": p5["staged_warp"],
         "launches_parse": p6["warp"],
         "launches_parse_directory": p6["dir_warp"],
+        "launches_enhance": p7["warp"],
+        "launches_enhance_directory": p7["dir_warp"],
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -1683,6 +2133,12 @@ def main() -> int:
         f"at 512², 19 classes, batch {n}: process_images, card vs CPU, process_dir, the "
         "landmark-free CLI")
     p6 = phase6_parsing(batches, fps, p5, device, card, rehearse)
+
+    # -- phase 7 -----------------------------------------------------------
+    log(f"phase 7: enhancement: RRDBNet x4 (23 RRDBs, nf 64, gc 32) behind RetinaFace at "
+        f"{resize}² → {out_size}² crops: card vs CPU, fused and staged gates, process_dir, "
+        "the landmark-free CLI, a TF32 diagnostic")
+    p7 = phase7_enhancement(batches, p5, device, card, rehearse)
     shutil.rmtree(p5["work"], ignore_errors=True)
 
     # -- phase 4 -----------------------------------------------------------
@@ -1694,13 +2150,16 @@ def main() -> int:
         "source": "face_crop_plus_tpu_torch/csrc/nms.cu",
         "replaces": "face_crop_plus_tpu/ops/pallas/nms_kernel.py:28",
         "redesigned": "PR 3",
-        "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"],
+        "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"]
+        + p7["nms"] + p7["dir_nms"],
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
         "launches_directory_staged": p5["staged_nms"],
         "launches_parse": p6["nms"],
         "launches_parse_directory": p6["dir_nms"],
+        "launches_enhance": p7["nms"],
+        "launches_enhance_directory": p7["dir_nms"],
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -1719,7 +2178,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5, p6),
+               all_warp, p5, p6, p7),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

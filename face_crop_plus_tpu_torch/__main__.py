@@ -8,10 +8,12 @@ that explicit flags override (``-c/--config``), negative thresholds mean
 "cuda"); ``-d cpu`` runs on the CPU.  ``-ag``/``-mg`` (JSON dicts of class
 indices) parse every crop with BiSeNet into the ``<attr>/<mask>`` and
 ``<mask>_mask`` subtrees; ``-dt -1`` without ``-l`` is the landmark-free
-mode (whole images pass through, parsed when groups are set).  Flags for
-paths the port does not have yet (landmarks, enhancement, ``-hc 1``,
-``-pu 1``, ``-pf 1``) reach ``Cropper`` and raise ``NotImplementedError``
-there; ``-si auto`` (multi-GPU sharding) raises here.
+mode (whole images pass through, parsed when groups are set).  ``-et``
+super-resolves images whose mean face factor is at or below it (every
+image in the landmark-free mode); a negative value switches it off.  Flags
+for paths the port does not have yet (landmarks, ``-hc 1``, ``-pu 1``,
+``-pf 1``) reach ``Cropper`` and raise ``NotImplementedError`` there;
+``-si auto`` (multi-GPU sharding) raises here.
 """
 
 from __future__ import annotations
@@ -73,7 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Face detection confidence threshold; negative disables "
                         "detection (without -l: whole images pass through).")
     p.add_argument("-et", "--enh-threshold", type=float, default=-1,
-                   help="Enhancement face-factor threshold; negative disables "
+                   help="Enhancement face-factor threshold: images whose mean "
+                        "face factor is at or below it are super-resolved "
+                        "(every image without detection); negative disables "
                         "enhancement.")
     p.add_argument("-b", "--batch-size", type=int, default=8,
                    help="Images per processing batch.")

@@ -8,9 +8,11 @@ directory pipeline :meth:`Cropper.process_dir` (read → detect and crop →
 parse → save, the JAX package's tree), which the CLI
 (``python -m face_crop_plus_tpu_torch``) drives; BiSeNet parsing into
 ``attr_groups``/``mask_groups`` (the ``<attr>/<mask>`` and ``<mask>_mask``
-subtrees); and the landmark-free mode (``det_threshold=None`` without
-landmarks), where whole images pass through to the tree, parsed when groups
-are set.
+subtrees); gated RRDBNet x4 enhancement (``enh_threshold``: images whose
+mean face factor is at or below it are super-resolved before their faces
+crop); and the landmark-free mode (``det_threshold=None`` without
+landmarks), where whole images pass through to the tree, enhanced when
+``enh_threshold`` is set and parsed when groups are set.
 
 Two paths crop faces, and which one a batch takes decides which pixels its
 crops sample, so the routing is part of the result:
@@ -23,6 +25,9 @@ crops sample, so the routing is part of the result:
   detects on that interim batch and samples crops from it, inside each
   image's un-padded window.
 
+With an enhancer, gated images' crops sample the enhanced interim on both
+paths (the fused path's other crops keep sampling the originals).
+
 Images of one shape take the fused path only when :meth:`_fused_eligible`
 grants their shape: it is one of the ``max_fused_shapes`` shapes already
 granted, or the group holds at least ``max(2, batch_size // 2)`` images and
@@ -32,13 +37,14 @@ JAX package's rule (``cropper.py:312-329``, ``:1487-1521``), where the
 budget bounds compiled XLA programs; the port keeps it so that both
 packages crop the same pixels.
 
-When a directory batch forms exactly one fused group and nothing is staged,
-the parser reads that group's crops on the device (the fused pipeline's
-handoff); otherwise it reads the host crops.  Both give the same groups.
+When a directory batch forms exactly one fused group and nothing is staged
+(nor gated), the parser reads that group's crops on the device (the fused
+pipeline's handoff); otherwise it reads the host crops.  Both give the same
+groups.
 
 Everything else raises ``NotImplementedError`` naming the missing path:
-the landmark-file mode, enhancement, meshes, the host-crop mode
-(``FCPT_HOST_CROP=1``) and packed 4:2:0 transfers (``FCPT_PACK_UPLOAD=1``,
+the landmark-file mode, meshes, the host-crop mode (``FCPT_HOST_CROP=1``)
+and packed 4:2:0 transfers (``FCPT_PACK_UPLOAD=1``,
 ``FCPT_PACK_FETCH=1``).
 """
 
@@ -61,6 +67,13 @@ from .utils.io import encoder_available, imwrite, read_images
 from .utils.landmarks import make_target_landmarks
 from .utils.profiling import PipelineStats
 
+#: Batch sizes the staged detect pads its interim batch to (with
+#: ``batch_size``, which is always one): cuDNN picks its convolution
+#: algorithms by batch size, and on an H100 some sizes run several times
+#: slower than a larger one (``PERF.md`` §5, the staged sweep of
+#: ``chip_smoke.py`` phase 5 (e)).
+STAGED_PAD_SIZES = (1, 8)
+
 
 def _pair(size) -> tuple[int, int]:
     if isinstance(size, int):
@@ -75,8 +88,8 @@ class Cropper:
 
     Args mirror the JAX ``Cropper``; ``device`` None (or "auto") means
     "cuda" and raises when CUDA is absent — pass ``device="cpu"`` to run on
-    the CPU.  ``det_model`` and ``par_model`` are None when their feature
-    is off; ``stats`` accumulates per-stage wall time
+    the CPU.  ``det_model``, ``enh_model`` and ``par_model`` are None when
+    their feature is off; ``stats`` accumulates per-stage wall time
     (:class:`.utils.profiling.PipelineStats`).
     """
 
@@ -153,8 +166,6 @@ class Cropper:
         missing = []
         if self.landmarks is not None:
             missing.append("the landmark-file mode")
-        if self.enh_threshold is not None:
-            missing.append("enhancement")
         if self.mesh is not None:
             missing.append("meshes")
         if os.environ.get("FCPT_HOST_CROP") == "1":
@@ -171,10 +182,12 @@ class Cropper:
         """Builds the models the configuration asks for.
 
         The detector exists when ``det_threshold`` is set and no landmarks
-        are given, the parser when either grouping is set (the JAX
-        ``_init_models``, ``cropper.py:335-383``).
+        are given, the enhancer when ``enh_threshold`` is set, the parser
+        when either grouping is set (the JAX ``_init_models``,
+        ``cropper.py:335-383``).
         """
         self.det_model = None
+        self.enh_model = None
         self.par_model = None
         if self.det_threshold is not None and self.landmarks is None:
             from .models.detection import RetinaFace
@@ -185,6 +198,14 @@ class Cropper:
                 max_faces=self.max_faces,
                 pre_topk=self.pre_topk,
                 auto_grow=self.auto_grow,
+                weights_dir=self.weights_dir,
+                device=self._device,
+            )
+        if self.enh_threshold is not None:
+            from .models.enhancement import RRDBNet
+
+            self.enh_model = RRDBNet(
+                min_face_factor=self.enh_threshold,
                 weights_dir=self.weights_dir,
                 device=self._device,
             )
@@ -216,6 +237,7 @@ class Cropper:
                 border_mode=self.padding,
                 allow_skew=self.allow_skew,
                 crop_source=self.crop_source,
+                enh_model=self.enh_model,
             )
 
     def _init_landmarks_target(self):
@@ -332,12 +354,21 @@ class Cropper:
             torch.from_numpy(crops[s:e]).copy_(out)
         return crops
 
+    def _staged_pad_size(self, n: int) -> int:
+        """The batch size the staged detect runs n images at: the smallest
+        of :data:`STAGED_PAD_SIZES` (up to ``batch_size``) and
+        ``batch_size`` that holds them, or n itself above ``batch_size``."""
+        sizes = {s for s in STAGED_PAD_SIZES if s <= self.batch_size} | {self.batch_size}
+        return min((s for s in sizes if s >= n), default=n)
+
     def _detect_interim(self, images: list[np.ndarray]):
         """Detects faces on the host-resized interim batch.
 
-        Counterpart of the JAX ``_detect_interim`` (``:1074-1100``) without
-        its batch padding: ``as_batch`` to the interim size, one upload,
-        detection, and landmark coordinates un-padded.
+        Counterpart of the JAX ``_detect_interim`` (``:1074-1100``):
+        ``as_batch`` to the interim size, the batch padded by repeating its
+        last image to :meth:`_staged_pad_size` (where the JAX package pads
+        to ``batch_size``), one upload, detection, the faces of padding
+        rows dropped, and landmark coordinates un-padded.
 
         Returns:
             Tuple of the uint8 interim batch (N, H, W, 3) on the device,
@@ -345,17 +376,23 @@ class Cropper:
             coordinates, and the face→image index list (F,).
         """
         batch, _, paddings = as_batch(images, self.resize_size)
+        n_true = len(batch)
+        batch, _ = pad_batch_to(batch, self._staged_pad_size(n_true))
         with self._device_lock:
             batch = torch.from_numpy(batch).to(self._device)
             landmarks, indices = self.det_model.predict(batch)
+        keep = [j for j, i in enumerate(indices) if i < n_true]
+        landmarks, indices = landmarks[keep], [indices[j] for j in keep]
         if len(landmarks) > 0:
             landmarks = landmarks - paddings[indices][:, None, [2, 0]]
-        return batch, paddings, landmarks, indices
+        return batch[:n_true], paddings, landmarks, indices
 
     def _detect_crop_staged(self, images: list[np.ndarray]):
-        """Staged detect → align → crop for a ragged image list.
+        """Staged detect → (gated enhance) → align → crop for a ragged list.
 
-        Counterpart of the JAX ``_detect_crop_staged`` (``:1102-1130``).
+        Counterpart of the JAX ``_detect_crop_staged`` (``:1102-1130``):
+        with an enhancer, the gated rows of the interim batch are
+        super-resolved on the device before their faces crop from it.
 
         Returns:
             Tuple of uint8 crops (F, Ho, Wo, 3) and int64 local image
@@ -365,6 +402,9 @@ class Cropper:
             batch, paddings, landmarks, indices = self._detect_interim(images)
             if len(landmarks) == 0:
                 return self._empty()
+        if self.enh_model is not None:
+            with self.stats.stage("enhance", len(batch)), self._device_lock:
+                batch = self.enh_model.predict(batch, landmarks, list(indices))
         with self.stats.stage("crop", len(landmarks)), self._device_lock:
             return self._align_crop_filtered(batch, paddings, indices, landmarks)
 
@@ -478,9 +518,13 @@ class Cropper:
         """The landmark-free mode: whole images pass through to the tree.
 
         Counterpart of the JAX ``process_batch``'s no-crop branch
-        (``:1354-1366``, ``:1420-1453``): with groups set, the originals
-        are parsed whole, so they must share one shape.
+        (``:1354-1366``, ``:1387-1453``): with an enhancer every image is
+        enhanced (a ragged list in one bucket per shape); with groups set,
+        the originals are parsed whole, so they must share one shape.
         """
+        if self.enh_model is not None:
+            with self.stats.stage("enhance", len(images)), self._device_lock:
+                images = self.enh_model.predict(images, None, None)
         groups = (None, None)
         if self.par_model is not None:
             if len({im.shape for im in images}) > 1:
@@ -497,12 +541,13 @@ class Cropper:
         """Reads, detects and crops, parses, and saves one batch of files.
 
         Counterpart of the JAX ``process_batch`` (``:1132-1453``) without
-        landmark files, enhancement and packed sources: images are grouped
-        by decoded shape; groups that :meth:`_fused_eligible` grants run
-        the fused path, the rest the staged path.  Oversized JPEGs decode
-        at a reduced DCT scale, never below ``max(resize_size)``.  With one
-        fused group and nothing staged, the parser reads that group's crops
-        on the device; otherwise the host crops.
+        landmark files and packed sources: images are grouped by decoded
+        shape; groups that :meth:`_fused_eligible` grants run the fused
+        path, the rest the staged path; both enhance gated images.
+        Oversized JPEGs decode at a reduced DCT scale, never below
+        ``max(resize_size)``.  With one fused group and nothing staged, the
+        parser reads that group's crops on the device; otherwise the host
+        crops.
         """
         target_max = None if self.det_model is None else max(self.resize_size)
         with self.stats.stage("read", len(file_names)):

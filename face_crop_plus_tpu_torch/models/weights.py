@@ -7,10 +7,11 @@ are read, in the JAX package's search order:
   BatchNorm folded to ``<prefix>.scale``/``<prefix>.bias``
   (:func:`from_jax_params` turns it into a state dict);
 * the reference's ``.pth`` checkpoint (``retinaface_detector.pth``,
-  ``bise_parser.pth``) — a raw torch state dict whose BatchNorms are folded
-  here (:func:`convert_state_dict`); conv kernels are already OIHW.  Keys
-  the network does not have (a training-time auxiliary head) are dropped,
-  as the JAX package never reads them; a missing key raises at load.
+  ``bsrgan_x4_enhancer.pth``, ``bise_parser.pth``) — a raw torch state
+  dict whose BatchNorms are folded here (:func:`convert_state_dict`);
+  conv kernels are already OIHW.  Keys the network does not have (a
+  training-time auxiliary head) are dropped, as the JAX package never
+  reads them; a missing key raises at load.
 
 Each is looked for in ``weights_dir`` first, then in ``FCPT_CACHE_DIR`` (or
 ``~/.cache/face_crop_plus_tpu``).  The port never downloads: when nothing
@@ -32,7 +33,11 @@ UPSTREAM_URL_ROOT = (
 )
 
 #: Reference checkpoint filenames per model.
-PTH_FILENAMES = {"retinaface": "retinaface_detector.pth", "bisenet": "bise_parser.pth"}
+PTH_FILENAMES = {
+    "retinaface": "retinaface_detector.pth",
+    "rrdb": "bsrgan_x4_enhancer.pth",
+    "bisenet": "bise_parser.pth",
+}
 
 BN_EPS = 1e-5
 

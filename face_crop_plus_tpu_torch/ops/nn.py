@@ -13,8 +13,8 @@ parameter names (which mirror the reference's torch module paths), so one
   from ``np.random.default_rng(seed)`` in parameter-creation order, the
   same draws the JAX package's ``Params`` init mode makes.
 
-The JAX module's ``upsample2x_nearest`` and ``downscale4x_bicubic`` serve
-only the enhancer, which is not ported yet.
+``upsample2x_nearest`` and ``downscale4x_bicubic`` serve the enhancer; like
+its convolutions they take NCHW tensors.
 """
 
 from __future__ import annotations
@@ -158,6 +158,33 @@ def resize_bilinear_nchw(
     my = my.to(device=x.device, dtype=x.dtype)
     mx = mx.to(device=x.device, dtype=x.dtype)
     return torch.matmul(torch.matmul(my, x), mx.t())
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Exact 2x nearest upsampling (pixel replication) of an NCHW tensor.
+
+    One allocation: the replicated view is copied once into its result.
+    """
+    n, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
+
+
+#: Torch bicubic (a = -0.75) downscaling by exactly 4 with
+#: ``align_corners=False`` samples at constant fractional offsets (±0.5,
+#: ±1.5) inside each group of 4 pixels: a separable stride-4 filter whose
+#: taps never leave the image, so no border rule applies.
+BICUBIC_DOWN4_TAPS = (-0.09375, 0.59375, 0.59375, -0.09375)
+
+
+def downscale4x_bicubic(x: torch.Tensor) -> torch.Tensor:
+    """Exact torch-parity bicubic x0.25 downscale of an NCHW tensor.
+
+    Equals ``F.interpolate(x, scale_factor=0.25, mode="bicubic")`` (the
+    enhancer's undo of its 4x upscale) for H and W divisible by 4.  Rows
+    first, then columns, as the JAX function filters.
+    """
+    rows = sum(t * x[:, :, k::4] for k, t in enumerate(BICUBIC_DOWN4_TAPS))
+    return sum(t * rows[:, :, :, k::4] for k, t in enumerate(BICUBIC_DOWN4_TAPS))
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

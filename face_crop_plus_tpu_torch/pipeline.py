@@ -20,8 +20,15 @@ or, for reference parity, the uint8 detector-resolution interim inside its
 un-padded window (``crop_source="interim"``).  Every crop goes through the
 warp kernel's wrapper (:func:`.ops.cuda.warp.warp_affine_u8`).
 
-Packed 4:2:0 uploads, enhancement and meshes are not ported yet; the
-Cropper refuses them.
+With an enhancer (:class:`.models.enhancement.RRDBNet`) every strategy runs
+the detect pass alone, keeping the uint8 interim on the device, and
+:meth:`FusedPipeline._finish_enhanced` gates each image by its mean face
+factor: gated images are super-resolved at interim resolution and their
+faces crop from the enhanced interim, the others crop as without an
+enhancer.
+
+Packed 4:2:0 uploads and meshes are not ported yet; the Cropper refuses
+them.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .models.enhancement import mean_face_factor
 from .ops.anchors import num_anchors
 from .ops.cuda.warp import warp_affine_u8
 from .ops.nn import resize_bilinear
@@ -100,9 +108,10 @@ class FusedPipeline:
     context manager; each stage runs inside it (:attr:`STAGES`).  "compact"
     is the two-program path's host compaction (validity to the host, kept
     slots); "fit_warp" and "to_host" recur once per crop chunk there.
+    "enhance" is the super-resolution of the gated interim rows.
     """
 
-    STAGES = ("resize_pad", "network", "select", "compact", "fit_warp", "to_host")
+    STAGES = ("resize_pad", "network", "select", "compact", "enhance", "fit_warp", "to_host")
 
     #: Faces per crop dispatch on the two-program path: bounds the crop
     #: buffer of one chunk (512 × 256² × 3 B = 100.7 MB) whatever a crowd
@@ -117,10 +126,12 @@ class FusedPipeline:
         border_mode: str,
         allow_skew: bool = False,
         crop_source: str = "original",
+        enh_model=None,
     ):
         if crop_source not in ("original", "interim"):
             raise ValueError(f"unknown crop_source: {crop_source!r}")
         self.det = det_model
+        self.enh = enh_model
         self.target = np.asarray(target_landmarks, np.float32)
         self.output_size = tuple(output_size)
         self.border_mode = border_mode
@@ -294,8 +305,8 @@ class FusedPipeline:
             (F, 5, 2) in source coordinates and int64 face→image indices
             (F,); with ``return_device_crops`` a 4th element, the device
             crop tensor of bucketed length F' >= F, or None when the
-            two-program path needed several chunks or dropped a face whose
-            fit was degenerate.
+            two-program path needed several chunks, dropped a face whose
+            fit was degenerate, or gated a face for enhancement.
         """
         n = images.shape[0]
         valid_n = n if valid_n is None else min(int(valid_n), n)
@@ -304,22 +315,28 @@ class FusedPipeline:
 
         # Strategy "all" runs the detect pass alone; the host compacts the
         # sparse face grid once and the crop chunks warp exactly the kept
-        # faces, instead of every padded slot.
+        # faces, instead of every padded slot.  So does every strategy with
+        # an enhancer, which needs the interim.
+        enhanced = self.enh is not None
         two_program = self.det.strategy == "all"
         h, w = images.shape[1:3]
         interim_crops = self.crop_source == "interim" and (h, w) != (ih, iw)
 
         def dispatch(args):
-            if not two_program:
+            if not (two_program or enhanced):
                 out = self._run_core(imgs, ih, iw, args)
                 return out, out[3]
             face_lm, valid, caps, interim = self._detect_trace(imgs, ih, iw, args)
-            # Keep only the pixels the crops sample.  The rounded interim
-            # holds exact integers in [0, 255]: the uint8 cast is lossless.
-            src = to_uint8(interim).contiguous() if interim_crops else imgs
+            # Keep only the pixels the crops sample (the enhancer's input is
+            # the interim).  The rounded interim holds exact integers in
+            # [0, 255]: the uint8 cast is lossless.
+            src = to_uint8(interim).contiguous() if interim_crops or enhanced else imgs
             return (face_lm, valid, caps, src), caps
 
         out = self.det.dispatch_with_growth(dispatch, num_anchors(ih, iw), valid_n)
+
+        if enhanced:
+            return self._finish_enhanced(out, imgs, (ih, iw), valid_n, return_device_crops)
 
         if two_program:
             dev_face_lm, dev_valid, _caps, src_imgs = out
@@ -365,6 +382,85 @@ class FusedPipeline:
             sel[len(keep) :] = keep[-1]
         dev_compact = dev_crops.index_select(0, torch.from_numpy(sel).to(self.device))
         return crops[keep], face_lm[keep], indices, dev_compact
+
+    def _finish_enhanced(self, out, imgs, interim_hw, valid_n: int, return_device_crops: bool):
+        """Gate → super-resolution → crop, after the detect pass.
+
+        Counterpart of the single-card branch of the JAX
+        ``_finish_enhanced`` (``pipeline.py:681-840``).  The gate compares
+        each real image's mean face factor, measured in interim coordinates
+        against the full padded interim area (the reference's quirk), with
+        the enhancer's threshold.  Faces of other images crop as without an
+        enhancer (from the originals, or from the interim under
+        ``crop_source="interim"``); the gated images' interim rows are
+        super-resolved on the device and their faces crop from the enhanced
+        rows inside the interim's un-padded window (the JAX
+        ``_crop_gated``), in chunks of :attr:`max_warp_chunk`.
+
+        Returns what :meth:`process` returns; the device crops are handed
+        on only when no face was gated and every fit was sound.
+        """
+        dev_face_lm, dev_valid, _caps, dev_interim = out
+        ih, iw = interim_hw
+        h, w = imgs.shape[1:3]
+        k = dev_face_lm.shape[0] // imgs.shape[0]
+        with self._stage("compact"):
+            keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
+        if len(keep) == 0:
+            return self._empty_result(return_device_crops)
+        face_lm = dev_face_lm.cpu().numpy()[keep]  # (F, 5, 2) source coordinates
+        indices = (keep // k).astype(np.int64)
+
+        scale, win = self._interim_window(h, w, ih, iw)
+        window = torch.tensor(win, dtype=torch.int32, device=self.device)
+        factors = mean_face_factor(face_lm * scale, indices.tolist(), valid_n, (ih, iw))
+        gated = np.nonzero(np.isfinite(factors) & (factors <= self.enh.min_face_factor))[0]
+        is_gated = np.isin(indices, gated)
+
+        crops_all = np.empty((len(keep),) + self._empty_crops().shape[1:], np.uint8)
+        ok_all = np.zeros(len(keep), bool)
+        dev_handle = None
+
+        plain_pos = np.nonzero(~is_gated)[0]
+        if len(plain_pos):
+            if self.crop_source == "interim":
+                crops_p, ok_p, dev_handle = self._crop_selected_chunked(
+                    dev_interim, dev_face_lm, keep[plain_pos], scale, window
+                )
+            else:
+                crops_p, ok_p, dev_handle = self._crop_selected_chunked(
+                    imgs, dev_face_lm, keep[plain_pos]
+                )
+            crops_all[plain_pos] = crops_p
+            ok_all[plain_pos] = ok_p
+
+        gated_pos = np.nonzero(is_gated)[0]
+        if len(gated_pos):
+            dev_handle = None
+            with self._stage("enhance"):
+                rows = torch.from_numpy(gated).to(self.device)
+                enhanced = self.enh.enhance_device(dev_interim.index_select(0, rows))
+            lm_interim = (face_lm[gated_pos] * scale).astype(np.float32)
+            local = np.searchsorted(gated, indices[gated_pos]).astype(np.int32)
+            chunk = self.max_warp_chunk
+            for s in range(0, len(gated_pos), chunk):
+                pos = gated_pos[s : s + chunk]
+                with self._stage("fit_warp"):
+                    lm = torch.from_numpy(lm_interim[s : s + chunk]).to(self.device)
+                    mats, ok = self._estimate(lm)
+                    crops = warp_affine_u8(
+                        enhanced, mats, torch.from_numpy(local[s : s + chunk]).to(self.device),
+                        self.output_size, self.border_mode,
+                        window[None].expand(len(pos), 4).contiguous(),
+                    )
+                with self._stage("to_host"):
+                    crops_all[pos] = crops.cpu().numpy()
+                    ok_all[pos] = ok.cpu().numpy()
+
+        crops, face_lm, indices = crops_all[ok_all], face_lm[ok_all], indices[ok_all]
+        if not return_device_crops:
+            return crops, face_lm, indices
+        return crops, face_lm, indices, (dev_handle if ok_all.all() else None)
 
     def detect_only(
         self, images: np.ndarray, interim_size: tuple[int, int], valid_n: int | None = None

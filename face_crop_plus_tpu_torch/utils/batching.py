@@ -13,8 +13,9 @@ program per shape.  Eager PyTorch runs any batch size, but cuDNN picks its
 convolution algorithms by batch size, and some picks are slow: on an H100
 the fused detector took 618 ms for 15 images of 218×178 at a 1024² interim
 and 203 ms for 16 (``chip_smoke.py``, phase 5 (e)).  So the port pads the
-fused path's groups to ``batch_size`` as the JAX package does; the staged
-path's batches (mostly one or two images, fast unpadded) are not padded.
+fused path's groups to ``batch_size`` as the JAX package does, and the
+staged path's batches to the smallest measured good size that holds them
+(``cropper.STAGED_PAD_SIZES``: one image runs fastest alone).
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ Both CLIs run as subprocesses on the same mixed directory with the same
 both packages read) and ``-d cpu``; the trees must have equal names and
 pixels within ±1 (``-hc 0``: both warp in f32).  Argument parsing,
 including the ``-c`` JSON layering, must give the JAX CLI's kwargs; the
-landmark-free mode (``-dt -1``) and parsing (``-ag``, ``-mg``) write the JAX
-CLI's tree; flags for paths the port does not have yet must raise.
+landmark-free mode (``-dt -1``), parsing (``-ag``, ``-mg``) and enhancement
+(``-et``) write the JAX CLI's tree; flags for paths the port does not have
+yet must raise.
 """
 
 import json
@@ -24,6 +25,7 @@ from torch_parity import (
     check_parse_tree,
     nfkd_ascii,
     read_tree,
+    small_enhancers,
     tree_max_diff,
     write_mixed_dir,
     write_tamed_npz,
@@ -110,7 +112,6 @@ def test_requires_input_dir():
     "extra",
     [
         ["-l", "lm.txt"],
-        ["-et", "0.1"],
         ["-hc", "1"],
         ["-pu", "1"],
         ["-pf", "1"],
@@ -129,14 +130,17 @@ def test_unported_flags_raise(clean_env, tmp_path, extra):
         ["-dt", "-1"],  # no detector, no landmarks: the landmark-free mode
         ["-ag", '{"p3": [3], "no3": [-3]}'],
         ["-mg", '{"face": [3, 12, 17], "c14": [14]}'],
+        ["-et", "1"],  # every face gated (2-block enhancers)
     ],
 )
 def test_ported_flags_run(clean_env, tmp_path, monkeypatch, extra):
     """Flags once refused run and write the JAX CLI's tree: images passed
-    through whole, or crops in their ``<attr>``/``<mask>[_mask]`` groups."""
+    through whole, crops in their ``<attr>``/``<mask>[_mask]`` groups, or
+    crops from enhanced images."""
     from face_crop_plus_tpu.models import parsing as jp
     from face_crop_plus_tpu_torch.models import parsing as tp
 
+    small_enhancers(monkeypatch)
     monkeypatch.setenv("FCPT_HOST_CROP", "0")
     monkeypatch.setenv("FCPT_CACHE_DIR", str(tmp_path / "no-cache"))
     src, wdir = str(tmp_path / "in"), str(tmp_path / "w")
@@ -158,8 +162,12 @@ def test_ported_flags_run(clean_env, tmp_path, monkeypatch, extra):
         jax_cli.main(argv + ["-o", str(tmp_path / "jax")])
         cli.main(argv + ["-o", str(tmp_path / "port")])
     ref, ours = read_tree(str(tmp_path / "jax")), read_tree(str(tmp_path / "port"))
-    check_parse_tree(ours, ref)
     dirs = {os.path.dirname(k) for k in ours}
+    if extra[0] == "-et":
+        # Crops of gated faces sample the enhanced interim: ±2.
+        assert dirs == {""} and len(ours) == 3 and tree_max_diff(ours, ref) <= 2
+        return
+    check_parse_tree(ours, ref)
     if extra[0] == "-dt":
         assert dirs == {""} and tree_max_diff(ours, ref) == 0 and len(ours) == 11
         assert {v.shape[:2] for v in ours.values()} >= {(72, 60), (50, 90)}

@@ -67,7 +67,6 @@ def test_default_device_raises_without_cuda():
     "kw",
     [
         dict(landmarks="lm.txt"),
-        dict(enh_threshold=0.01),
         dict(mesh=object()),
     ],
 )
@@ -81,21 +80,25 @@ def test_unported_paths_raise(kw):
     [
         dict(attr_groups={"p3": [3], "no3": [-3], "p15": [15]}),
         dict(det_threshold=None),
+        dict(enh_threshold=1.0),
     ],
 )
 def test_ported_paths_run(monkeypatch, tmp_path, kw):
-    """Parsing and the landmark-free mode, once refused, run as JAX's do.
+    """Parsing, the landmark-free mode and enhancement, once refused, run
+    as JAX's do.
 
     Both parsers run at a 128² inference size (the 512² parse is held in
-    ``tests/test_torch_parsing.py``)."""
+    ``tests/test_torch_parsing.py``), both enhancers with 2 RRDBs (the
+    gate's parity is held in ``tests/test_torch_enhance_path.py``)."""
     from face_crop_plus_tpu.models import parsing as jp
     from face_crop_plus_tpu_torch.models import parsing as tp
     from face_crop_plus_tpu_torch.utils.io import imwrite
 
-    from torch_parity import read_tree, smooth_image, tree_max_diff
+    from torch_parity import read_tree, small_enhancers, smooth_image, tree_max_diff
 
     for module in (jp, tp):
         monkeypatch.setattr(module, "_INFER_SIZE", 128)
+    small_enhancers(monkeypatch)
 
     j, t = _pair(monkeypatch, **{**dict(output_size=64, resize_size=64, det_threshold=-1.0,
                                         batch_size=4, output_format="png"), **kw})
@@ -118,8 +121,14 @@ def test_ported_paths_run(monkeypatch, tmp_path, kw):
         warnings.simplefilter("ignore")
         ref = j.process_images(batch)
         ours = t.process_images(batch)
+    np.testing.assert_array_equal(ours[1], ref[1])
+    diff = int(np.abs(ours[0].astype(np.int16) - ref[0].astype(np.int16)).max())
+    if t.enh_model is not None:
+        # Every face is gated: crops sample the enhanced interim (±2).
+        assert ours[2] == ref[2] == (None, None) and diff <= 2 and len(ours[1]) == 4
+        return
     assert ours[2] == ref[2] and ours[2][1] is None and ours[2][0]["p3"] == [0, 1, 2, 3]
-    assert int(np.abs(ours[0].astype(np.int16) - ref[0].astype(np.int16)).max()) <= 1
+    assert diff <= 1
 
 
 @pytest.mark.parametrize("var", ["FCPT_HOST_CROP", "FCPT_PACK_UPLOAD", "FCPT_PACK_FETCH"])

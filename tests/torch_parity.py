@@ -95,6 +95,72 @@ def torch_bisenet(params: dict[str, np.ndarray]):
     return net.eval().requires_grad_(False)
 
 
+@functools.lru_cache(maxsize=2)
+def jax_rrdb_params(num_blocks: int) -> dict[str, np.ndarray]:
+    """The JAX package's RRDBNet random-init dict (key set, shapes, values)
+    at ``num_blocks``, as its ``RRDBNet._init_fn`` draws it."""
+    from face_crop_plus_tpu.models.enhancement import rrdbnet_forward
+    from face_crop_plus_tpu.ops.nn import init_structure
+
+    return init_structure(rrdbnet_forward, (1, 16, 16, 3), 2, num_blocks)
+
+
+#: RRDB blocks of the parity tests' enhancer (the network's 23 in full).
+TEST_RRDB_BLOCKS = 2
+
+#: Settings of :func:`tamed_rrdb_params`: conv gain, bias spread, the gain of
+#: ``conv_last`` and its bias.  Each RRDB returns ~1.2x its input (0.2 x the
+#: dense chain, itself ~ its input, plus the input), so the random-init trunk
+#: grows ~1.2^num_blocks and saturates every output pixel; ``trunk_conv``'s
+#: gain is 1.44^-num_blocks to undo that, and ``conv_last`` centres the
+#: output on mid-grey: enhanced images spread over ~±40 levels (2 blocks)
+#: and ~±20 (23 blocks), unsaturated.
+TAMED_RRDB = dict(gain=1.0, bias=0.01, last_gain=0.5, last_bias=0.5)
+
+
+@functools.lru_cache(maxsize=2)
+def tamed_rrdb_params(num_blocks: int = TEST_RRDB_BLOCKS, seed: int = 1) -> dict[str, np.ndarray]:
+    """JAX-layout RRDBNet params with the random-init key set, tamed."""
+    rng = np.random.default_rng(seed)
+    t = TAMED_RRDB
+    out = {}
+    for key, val in jax_rrdb_params(num_blocks).items():
+        if val.ndim == 4:
+            gain = {"conv_last.weight": t["last_gain"],
+                    "trunk_conv.weight": 1.44 ** -num_blocks}.get(key, t["gain"])
+            w = rng.normal(size=val.shape) * np.sqrt(gain / np.prod(val.shape[:3]))
+            out[key] = w.astype(np.float32)
+        elif key == "conv_last.bias":
+            out[key] = np.full(val.shape, t["last_bias"], np.float32)
+        else:
+            out[key] = (rng.normal(size=val.shape) * t["bias"]).astype(np.float32)
+    return out
+
+
+def torch_rrdb(params: dict[str, np.ndarray]):
+    """A port :class:`RRDBNetwork` on the CPU holding ``params`` (its block
+    count read from their keys)."""
+    from face_crop_plus_tpu_torch.models.enhancement import RRDBNetwork
+    from face_crop_plus_tpu_torch.models.weights import from_jax_params
+
+    blocks = {k.split(".")[1] for k in params if k.startswith("RRDB_trunk.")}
+    net = RRDBNetwork(len(blocks))
+    net.load_state_dict(from_jax_params(params, net), strict=True)
+    return net.eval().requires_grad_(False)
+
+
+def small_enhancers(monkeypatch, num_blocks: int = TEST_RRDB_BLOCKS):
+    """Both packages' Croppers (and CLIs) build ``num_blocks``-block
+    enhancers: ``RRDBNet`` is looked up at model init, so a partial with the
+    block count stands in for it."""
+    from face_crop_plus_tpu.models import enhancement as je
+    from face_crop_plus_tpu_torch.models import enhancement as te
+
+    for module in (je, te):
+        monkeypatch.setattr(module, "RRDBNet",
+                            functools.partial(module.RRDBNet, num_blocks=num_blocks))
+
+
 def torch_net(params: dict[str, np.ndarray]):
     """A port :class:`RetinaFaceNet` on the CPU holding ``params``."""
     from face_crop_plus_tpu_torch.models.detection import RetinaFaceNet
@@ -118,7 +184,8 @@ def cropper_pair(**kw):
     The caller sets ``FCPT_HOST_CROP=0`` first: by default the JAX Cropper
     warps on the host when its native kernel is built, and the port
     reproduces the device warp.  Each model either Cropper has (detector,
-    parser) gets its tamed weights.
+    enhancer, parser) gets its tamed weights; enhancers need
+    :func:`small_enhancers` first.
     """
     import warnings
 
@@ -130,10 +197,12 @@ def cropper_pair(**kw):
         warnings.simplefilter("ignore")
         j = face_crop_plus_tpu.Cropper(device="cpu", **kw)
         t = face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
-    models = [(j.det_model, t.det_model, tamed_params()),
-              (j.par_model, t.par_model, tamed_bisenet_params())]
-    for jm, tm, p in models:
+    models = [(j.det_model, t.det_model, tamed_params),
+              (j.enh_model, t.enh_model, tamed_rrdb_params),
+              (j.par_model, t.par_model, tamed_bisenet_params)]
+    for jm, tm, params in models:
         if jm is not None:
+            p = params()
             jm.params = jax_params(p)
             tm.net.load_state_dict(from_jax_params(p, tm.net), strict=True)
     return j, t
@@ -229,13 +298,15 @@ def tree_max_diff(a: dict, b: dict) -> int:
 
 
 def write_tamed_npz(weights_dir: str) -> str:
-    """Writes :func:`tamed_params` as ``retinaface.npz`` and
-    :func:`tamed_bisenet_params` as ``bisenet.npz`` (both packages read
-    them); returns the detector's path."""
+    """Writes :func:`tamed_params` as ``retinaface.npz``,
+    :func:`tamed_bisenet_params` as ``bisenet.npz`` and the
+    :data:`TEST_RRDB_BLOCKS`-block :func:`tamed_rrdb_params` as
+    ``rrdb.npz`` (both packages read them); returns the detector's path."""
     import os
 
     os.makedirs(weights_dir, exist_ok=True)
     np.savez(os.path.join(weights_dir, "bisenet.npz"), **tamed_bisenet_params())
+    np.savez(os.path.join(weights_dir, "rrdb.npz"), **tamed_rrdb_params())
     path = os.path.join(weights_dir, "retinaface.npz")
     np.savez(path, **tamed_params())
     return path
