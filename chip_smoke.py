@@ -110,8 +110,41 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    2400×1800 file: every image enhanced, peak memory.  (f) A diagnostic:
    TF32 allowed inside the enhancer, its time and its level differences
    from f32.  The phase's wall time.
-4. The ``kernels`` JSON line (phase 5's, 6's and 7's launches beside the
-   others), the card line, and the ``ok`` line last.
+8. The host path at full width, on phase 5's directory, with
+   ``build_status()`` of the native host library printed first (where it
+   does not build for want of libjpeg, no host warp, 4:2:0 codec or packed
+   decode exists and every crop is the warp kernel's).  (a) The
+   landmark-file mode: 5-point landmarks of every readable file from the
+   tamed detector, written as a CelebA-style whitespace file in which
+   every 11th file has no row and every 7th two rows; ``process_dir`` with
+   strategy "all" (``_0``/``_1`` names), batch 64, 256² crops, constant
+   border, 1 thread (2 passes) and 4 threads: names exact, trees byte-equal,
+   the warp kernel launched on every batch, K1 never, faces/s; then 16
+   files in all five border modes, card vs CPU, PNG, within ±1.  (b) The
+   landmark mode with BiSeNet (512², tamed) over 64 files, card vs CPU on
+   4 crops as phase 6 (b) holds them; with RRDBNet (23 RRDBs, tamed) over
+   16 files, the threshold midway between the 2nd and 3rd smallest mean
+   face factors (2 gated), card vs CPU: gated crops within ±2, plain ones
+   ±1.  (a) and (b) run under ``FCPT_HOST_CROP=auto``, whose gates must
+   be off on the card.  (c) ``FCPT_HOST_CROP=1`` on phase 3's batches
+   beside the default, with phase 3's random-init detector and with
+   tamed detector weights (as phase 7 (b) tames them): the detect-only
+   program (K1 on every request), numpy fits, the warp that ran (the
+   kernel, the native warp being absent), indices equal, pixels within ±2
+   (random detector: faces of thousands of pixels, where the host's and
+   the device's fits differ most) and ±1 (tamed), faces/s of each.
+   (d) The packed wire's device half
+   on rows packed by ``rgb_to_yuv420_np`` from phase 3's first batch: the
+   device reconstruction and packing bitwise equal to the numpy twins;
+   "largest" on packed rows equal to "largest" on their reconstruction;
+   "all" with ``pack_crops``: rows bitwise equal to the numpy packing of
+   the RGB crops, the ``to_host`` stage and its bytes beside the RGB
+   fetch.  The phase's wall time.
+4. The ``kernels`` JSON line (phase 5's, 6's, 7's and 8's launches beside
+   the others), the card line, and the ``ok`` line last.
+
+Phases 3-7 run with ``FCPT_HOST_CROP=0``: they hold the device path,
+which "auto" gives on a card, in the CPU rehearsal too.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
 versions (no build, no launch counts; phase 5's CLI with ``-d cpu``) and
@@ -1286,6 +1319,40 @@ def count_inputs(model) -> dict:
     return inputs
 
 
+def parse_card_vs_cpu(par, crops, groups_kw, device, label):
+    """The parser on the card against the CPU on the same crops: labels
+    equal except where the CPU's top-2 logit margin is at most
+    :data:`PARSE_EPS`, counts within those flips, groups equal."""
+    from face_crop_plus_tpu_torch.models.parsing import BiSeNet
+    from face_crop_plus_tpu_torch.ops.nn import resize_nearest
+
+    out = crops.shape[1:3]
+    cpu = BiSeNet(max_batch_size=len(crops), device="cpu", **groups_kw)
+    cpu.net.load_state_dict(par.net.state_dict())
+    cpu.attr_join_by_and = par.attr_join_by_and
+    lab_d, cnt_d = par.parse_batch(crops)
+    lab_c, cnt_c = cpu.parse_batch(crops)
+    logits_c = cpu._logits(torch.from_numpy(crops))
+    logits_d = par._logits(torch.from_numpy(crops).to(device)).cpu()
+    top2 = logits_c.topk(2, dim=1).values
+    near = resize_nearest((top2[:, :1] - top2[:, 1:2]), out)[:, 0].numpy() <= PARSE_EPS
+    differ = lab_d != lab_c
+    flips = differ.reshape(len(crops), -1).sum(1)
+    gd, gc = par.predict(crops), cpu.predict(crops)
+    same_groups = gd[0] == gc[0] and {k: v[0] for k, v in gd[1].items()} == {
+        k: v[0] for k, v in gc[1].items()}
+    log(f"  {label} {device} vs cpu on {len(crops)} crops: logits max |diff| "
+        f"{float((logits_d - logits_c).abs().max()):.6g} (max |logit| "
+        f"{float(logits_c.abs().max()):.6g}); {int(near.sum())} near-tie pixels (CPU top-2 "
+        f"margin <= {PARSE_EPS}); labels differ at {int(differ.sum())} pixels, "
+        f"{int((differ & ~near).sum())} of them off near-ties; counts |diff| per face "
+        f"{np.abs(cnt_d.astype(np.int64) - cnt_c).sum(1).tolist()} (flips {flips.tolist()}); "
+        f"groups equal: {same_groups}")
+    if (differ & ~near).any() or (np.abs(cnt_d.astype(np.int64) - cnt_c).sum(1) > 2 * flips).any() \
+            or not same_groups:
+        raise SystemExit("FAIL: parse on the card differs from the CPU off near-ties")
+
+
 def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
     """Parsing at full width; see the module docstring.
 
@@ -1293,10 +1360,8 @@ def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
     passes, and the numbers the kernels line carries.
     """
     from face_crop_plus_tpu_torch import Cropper
-    from face_crop_plus_tpu_torch.models.parsing import BiSeNet
     from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
-    from face_crop_plus_tpu_torch.ops.nn import resize_nearest
     from face_crop_plus_tpu_torch.utils.profiling import PipelineStats
 
     n = batches[0].shape[0]
@@ -1375,32 +1440,8 @@ def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
         f"predict; f32 bound {t_ops:.6f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s")
 
     # (b) the card against the CPU on 4 crops.
-    four = crops[:4]
-    cpu = BiSeNet(max_batch_size=4, device="cpu", **groups_kw)
-    cpu.net.load_state_dict(par.net.state_dict())
-    cpu.attr_join_by_and = False
-    lab_d, cnt_d = par.parse_batch(four)
-    lab_c, cnt_c = cpu.parse_batch(four)
-    logits_c = cpu._logits(torch.from_numpy(four))
-    logits_d = par._logits(torch.from_numpy(four).to(device)).cpu()
-    top2 = logits_c.topk(2, dim=1).values
-    near = resize_nearest((top2[:, :1] - top2[:, 1:2]), (out, out))[:, 0].numpy() <= PARSE_EPS
-    differ = lab_d != lab_c
-    flips = differ.reshape(len(four), -1).sum(1)
-    gd, gc = par.predict(four), cpu.predict(four)
-    same_groups = gd[0] == gc[0] and {k: v[0] for k, v in gd[1].items()} == {
-        k: v[0] for k, v in gc[1].items()}
-    log(f"  (b) {device} vs cpu on {len(four)} crops: logits max |diff| "
-        f"{float((logits_d - logits_c).abs().max()):.6g} (max |logit| "
-        f"{float(logits_c.abs().max()):.6g}); {int(near.sum())} near-tie pixels (CPU top-2 "
-        f"margin <= {PARSE_EPS}); labels differ at {int(differ.sum())} pixels, "
-        f"{int((differ & ~near).sum())} of them off near-ties; counts |diff| per face "
-        f"{np.abs(cnt_d.astype(np.int64) - cnt_c).sum(1).tolist()} (flips {flips.tolist()}); "
-        f"groups equal: {same_groups}")
-    if (differ & ~near).any() or (np.abs(cnt_d.astype(np.int64) - cnt_c).sum(1) > 2 * flips).any() \
-            or not same_groups:
-        raise SystemExit("FAIL: parse on the card differs from the CPU off near-ties")
-    del c, cpu, logits_c, logits_d
+    parse_card_vs_cpu(par, crops[:4], groups_kw, device, "(b)")
+    del c
 
     # (c) process_dir with groups over phase 5's directory.
     src, readable, kw = p5["src"], p5["readable"], dict(p5["kw"], **groups_kw)
@@ -1884,6 +1925,408 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
                 dir_warp=dir_launches[1], fps=fps, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the host path
+# ---------------------------------------------------------------------------
+
+
+class PathCounter:
+    """Which path each batch took while active: detect-only passes (the
+    host-crop mode's batches), fused passes and detect-only passes over
+    packed rows (packed groups), and host warps that ran (the native
+    library's RGB or 4:2:0 warp; the warp kernel counts its own launches)."""
+
+    def __init__(self):
+        self.n = {"host_crop_batches": 0, "packed_groups": 0, "host_warps": 0}
+        self._undo = []
+
+    def _wrap(self, owner, name, count):
+        real = getattr(owner, name)
+
+        def wrapped(*args, **kwargs):
+            out = real(*args, **kwargs)
+            count(kwargs, out)
+            return out
+
+        setattr(owner, name, wrapped)
+        self._undo.append((owner, name, real))
+
+    def _add(self, key, cond=True):
+        self.n[key] += int(bool(cond))
+
+    def __enter__(self):
+        from face_crop_plus_tpu_torch.pipeline import FusedPipeline
+        from face_crop_plus_tpu_torch.utils import native_io
+
+        def detect_only(kw, _out):
+            self._add("host_crop_batches")
+            self._add("packed_groups", kw.get("packed_hw") is not None)
+
+        self._wrap(FusedPipeline, "detect_only", detect_only)
+        self._wrap(FusedPipeline, "process",
+                   lambda kw, _out: self._add("packed_groups", kw.get("packed_hw") is not None))
+        for name in ("warp_affine_batch_native", "warp_yuv420_batch_native"):
+            self._wrap(native_io, name, lambda _kw, out: self._add("host_warps", out is not None))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+    def __str__(self):
+        return ", ".join(f"{k} {v}" for k, v in self.n.items())
+
+
+def landmark_table(p5, device) -> dict:
+    """5-point landmarks (source coordinates) of phase 5's readable files:
+    the tamed detector's "largest" face of each, by fused detect-only
+    passes of up to 16 same-shape images."""
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.utils.io import read_images
+
+    c = Cropper(device=str(device), strategy="largest", **p5["kw"])
+    images, names = read_images(p5["readable"], p5["src"])
+    by_shape: dict = {}
+    for i, im in enumerate(images):
+        by_shape.setdefault(im.shape, []).append(i)
+    table = {}
+    for ids in by_shape.values():
+        for s in range(0, len(ids), 16):
+            chunk = ids[s : s + 16]
+            lm, idx = c._fused.detect_only(np.stack([images[i] for i in chunk]), c.resize_size)
+            for pts, k in zip(lm, idx):
+                table[str(names[chunk[k]])] = pts
+    return table
+
+
+def write_landmarks(path, table, names) -> list[str]:
+    """A CelebA-style whitespace landmarks file (``bench.py:141-149``'s
+    layout, 5 points a row) for ``names``: every 11th file has no row, every
+    7th a second row 3 px off the first.  Returns the crop names strategy
+    "all" writes."""
+    rows, expected = [], []
+    for k, name in enumerate(names):
+        if k % 11 == 5 or name not in table:
+            continue
+        stem, ext = os.path.splitext(name)
+        shifts = (0.0, 3.0) if k % 7 == 3 else (0.0,)
+        for j, shift in enumerate(shifts):
+            rows.append(name + " " + " ".join(f"{v:.4f}" for v in (table[name] + shift).ravel()))
+            expected.append(f"{stem}_{j}{ext}")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return sorted(expected)
+
+
+def link_subset(src, dst, names):
+    os.makedirs(dst)
+    for f in names:
+        os.link(os.path.join(src, f), os.path.join(dst, f))
+    return dst
+
+
+def decoded_diff(dir_a, dir_b) -> int:
+    """Largest decoded pixel difference of two trees with the same names."""
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+
+    return max(int(np.abs(imread_rgb(os.path.join(dir_a, f)).astype(np.int16)
+                          - imread_rgb(os.path.join(dir_b, f))).max())
+               for f in os.listdir(dir_a))
+
+
+def phase8_host_path(batches, p3_fps, p5, device, card, rehearse):
+    """The host path at full width; see the module docstring.
+
+    Returns each sub-phase's K1 and warp launches for the kernels line.
+    """
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.models.enhancement import mean_face_factor
+    from face_crop_plus_tpu_torch.ops import yuv
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.utils import native_io
+    from face_crop_plus_tpu_torch.utils.io import read_images
+    from face_crop_plus_tpu_torch.utils.landmarks import parse_landmarks_file
+
+    t_phase = time.perf_counter()
+    launches = {}
+    log("  native host library build_status: "
+        + json.dumps(native_io.build_status())[:600])
+    # The default routing, but for the rehearsal, whose CPU would take the
+    # host-crop mode under "auto" wherever the native library builds.
+    default_env = "0" if rehearse else "auto"
+    os.environ["FCPT_HOST_CROP"] = default_env
+    work, src, readable = p5["work"], p5["src"], p5["readable"]
+    n, out, resize = batches[0].shape[0], p5["kw"]["output_size"], p5["kw"]["resize_size"]
+    bs = 4 if rehearse else 64
+
+    # (a) the landmark-file mode over phase 5's directory.
+    t0 = time.perf_counter()
+    table = landmark_table(p5, device)
+    lm_path = os.path.join(work, "landmarks.txt")
+    expected = write_landmarks(lm_path, table, readable)
+    log(f"  (a) landmarks of {len(table)} files from the tamed detector, written as "
+        f"{len(expected)} rows of 5 points ({sum(e.endswith(('_1.jpg', '_1.png')) for e in expected)} "
+        f"files with two rows, {len(readable) - len({e.rsplit('_', 1)[0] for e in expected})} "
+        f"with none) in {time.perf_counter() - t0:.3f} s")
+    c = Cropper(device=str(device), landmarks=lm_path, strategy="all", output_size=out,
+                batch_size=bs)
+    if c.det_model is not None or c._fused is not None:
+        raise SystemExit("FAIL: the landmark-file mode built a detector")
+    gates = dict(host_crop=c._host_crop_enabled(), yuv_crop=c._yuv_crop_eligible())
+    log(f"  FCPT_HOST_CROP={default_env}: gates {gates}")
+    if not rehearse and any(gates.values()):
+        raise SystemExit("FAIL: 'auto' turned a host warp on on the card")
+    per_batch = []
+    real_batch = c.process_batch
+
+    def counted_batch(file_names, **kw):
+        before = warp_kern.launches
+        real_batch(file_names, **kw)
+        per_batch.append(warp_kern.launches - before)
+
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    trees, rates = {}, {}
+    with PathCounter() as paths:
+        for n_proc, reps in ((1, 2), (4, 1)):
+            c.num_processes = n_proc
+            c.process_batch = counted_batch if n_proc == 1 else real_batch
+            for rep in range(reps):
+                dst = os.path.join(work, f"lm_p{n_proc}_{rep}")
+                t0 = time.perf_counter()
+                c.process_dir(src, dst, desc=None)
+                sec = time.perf_counter() - t0
+                check_tree(dst, expected, out, f"landmark tree p{n_proc} pass {rep}")
+                trees[(n_proc, rep)] = tree_digest(dst)
+                rates[(n_proc, rep)] = len(expected) / sec
+                log(f"  [{card}] (a) landmarks 'all', constant, batch {bs}, num_processes="
+                    f"{n_proc} pass {rep}: {len(expected)} crops of {len(readable)} files in "
+                    f"{sec:.6f} s = {rates[(n_proc, rep)]:.6f} faces/s")
+    launches["landmarks"] = (nms_kern.launches, warp_kern.launches)
+    differ = {k: sum(trees[(1, 0)].get(f) != v.get(f) for f in set(v) | set(trees[(1, 0)]))
+              for k, v in trees.items()}
+    log(f"  (a) warp launches per one-thread batch {per_batch}; in all: K1 "
+        f"{launches['landmarks'][0]}, warp {launches['landmarks'][1]}; paths: {paths}; files "
+        f"differing from the first one-thread tree: {differ}")
+    if any(differ.values()):
+        raise SystemExit("FAIL: the landmark tree differs across passes or thread counts")
+    if not rehearse and (min(per_batch) < 1 or paths.n["host_warps"] or launches["landmarks"][0]):
+        raise SystemExit("FAIL: a landmark batch did not crop through the warp kernel")
+    del c
+
+    # The five border modes over 16 files, card vs CPU, PNG.
+    uniform = [f for f in readable if "_" not in f[4:]]
+    sub = link_subset(src, os.path.join(work, "lm16"), uniform[:12] + [
+        f for f in readable if f.endswith(("_r.jpg", "_p.png"))][:4])
+    sub_expected = sorted(e for e in expected if e.rsplit("_", 1)[0] in
+                          {os.path.splitext(f)[0] for f in os.listdir(sub)})
+    sub_expected = [os.path.splitext(e)[0] + ".png" for e in sub_expected]
+    worst = {}
+    for mode in ("constant", "replicate", "reflect", "wrap", "reflect_101"):
+        dirs = []
+        for k, dev in enumerate((str(device), "cpu")):
+            cm = Cropper(device=dev, landmarks=lm_path, strategy="all", output_size=out,
+                         batch_size=bs, padding=mode, output_format="png")
+            dirs.append(os.path.join(work, f"lm16_{mode}_{k}"))
+            cm.process_dir(sub, dirs[-1], desc=None)
+            check_tree(dirs[-1], sub_expected, out, f"landmark subset {mode} on {dev}")
+        worst[mode] = decoded_diff(*dirs)
+    log(f"  (a) {len(os.listdir(sub))} files ({len(sub_expected)} crops), {device} vs cpu, PNG, "
+        f"max pixel |diff| by border mode: {worst}")
+    if max(worst.values()) > 1:
+        raise SystemExit("FAIL: landmark crops on the card differ from the CPU by more than 1")
+
+    # (b) the landmark mode with the parser, then with the enhancer.
+    lm_names = {e.rsplit("_", 1)[0] for e in expected}
+    one_row = [f for f in uniform if f"{os.path.splitext(f)[0]}_1.jpg" not in expected
+               and os.path.splitext(f)[0] in lm_names]
+    par_dir = link_subset(src, os.path.join(work, "lm64"), uniform[: 8 if rehearse else 64])
+    groups_kw = dict(attr_groups=ATTR_GROUPS, mask_groups=MASK_GROUPS)
+    cp = Cropper(device=str(device), landmarks=lm_path, strategy="largest", output_size=out,
+                 batch_size=n, **groups_kw)
+    cp.par_model.net.load_state_dict(tamed_parser_state_dict(cp.par_model.net))
+    cp.par_model.attr_join_by_and = False
+    seen = []
+    real_predict = cp.par_model.predict
+
+    def recording(images, *args, **kwargs):
+        seen.append(np.asarray(images))
+        return real_predict(images, *args, **kwargs)
+
+    cp.par_model.predict = recording
+    par_out = os.path.join(work, "lm64_parse")
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    t0 = time.perf_counter()
+    cp.process_dir(par_dir, par_out, desc=None)
+    sec = time.perf_counter() - t0
+    launches["landmarks_parse"] = (nms_kern.launches, warp_kern.launches)
+    cp.par_model.predict = real_predict
+    n_files, n_parsed = len(os.listdir(par_dir)), sum(len(x) for x in seen)
+    per_dir, n_faces = check_parse_tree(par_out, n_files, "landmark parse tree")
+    log(f"  [{card}] (b) landmarks + BiSeNet (512², tamed) over {n_files} files: "
+        f"{n_parsed} crops parsed in {len(seen)} batches, {n_faces} written (a second row "
+        f"overwrites its file's first under 'largest'), {sec:.6f} s = {n_parsed / sec:.6f} "
+        f"faces/s (first pass); warp launches {launches['landmarks_parse'][1]}; tree {per_dir}")
+    if not rehearse and launches["landmarks_parse"][1] < len(seen):
+        raise SystemExit("FAIL: a landmark parse batch did not crop through the warp kernel")
+    parse_card_vs_cpu(cp.par_model, seen[0][:4], groups_kw, device, "(b)")
+    del cp, seen
+
+    blocks = 1 if rehearse else 23
+    enh16 = one_row[:n]
+    rows_lm, rows_names = parse_landmarks_file(lm_path)
+    pts = np.stack([rows_lm[list(rows_names).index(f)] for f in enh16])
+    hw = read_images(enh16[:1], src)[0][0].shape[:2]
+    factors = mean_face_factor(pts, list(range(len(enh16))), len(enh16), hw)
+    thr = midway(factors, 2 if len(enh16) > 2 else 1)
+    gated = [enh16[i] for i in np.nonzero(factors <= thr)[0]]
+    plain = [f for f in enh16 if f not in gated][:2]
+    enh_dirs = []
+    for k, (dev, names) in enumerate(((str(device), enh16), ("cpu", gated + plain))):
+        ce = Cropper(device=dev, landmarks=lm_path, strategy="largest", output_size=out,
+                     batch_size=n, enh_threshold=thr, output_format="png")
+        tame_enhancer(ce.enh_model, blocks)
+        rows = [0]
+        real_enh = ce.enh_model.enhance_images
+
+        def counted_enh(images, *args, _real=real_enh, _rows=rows, **kwargs):
+            _rows[0] += len(images)
+            return _real(images, *args, **kwargs)
+
+        ce.enh_model.enhance_images = counted_enh
+        d_in = link_subset(src, os.path.join(work, f"lm_enh_in_{k}"), names)
+        enh_dirs.append(os.path.join(work, f"lm_enh_{k}"))
+        nms_kern.launches = 0
+        warp_kern.launches = 0
+        t0 = time.perf_counter()
+        ce.process_dir(d_in, enh_dirs[-1], desc=None)
+        sec = time.perf_counter() - t0
+        if k == 0:
+            launches["landmarks_enhance"] = (nms_kern.launches, warp_kern.launches)
+        log(f"  [{card if k == 0 else 'cpu'}] (b) landmarks + RRDBNet ({blocks} RRDBs, "
+            f"tamed) on {dev}: {len(names)} files, threshold {thr:.9g}, {rows[0]} enhanced, "
+            f"{sec:.6f} s")
+        if rows[0] != len(gated):
+            raise SystemExit(f"FAIL: {rows[0]} images enhanced on {dev}, not {len(gated)}")
+        del ce
+    lv = {f: int(np.abs(read_rgb(enh_dirs[0], f).astype(np.int16)
+                        - read_rgb(enh_dirs[1], f)).max()) for f in gated + plain}
+    log(f"  (b) {device} vs cpu, gated {gated} and plain {plain}: max pixel |diff| {lv}")
+    if any(lv[f] > 2 for f in gated) or any(lv[f] > 1 for f in plain):
+        raise SystemExit("FAIL: enhanced landmark crops differ between the card and the CPU")
+
+    # (c) the host-crop mode forced on phase 3's batches, with phase 3's
+    # random-init detector and with tamed weights.  The random detector's
+    # faces span thousands of pixels, so its crops minify the noise 20-50x
+    # and the host's numpy fit and the device's f32 fit move such samples
+    # by up to 2 levels (the band against the host warp, PERF.md §2); the
+    # tamed detector's faces sit inside the image, where the fits agree
+    # within 1 level.
+    host_crop_launches = [0, 0]
+    for weights, band in (("random", 2), ("tamed", 1)):
+        ch = Cropper(device=str(device), output_size=out, resize_size=resize,
+                     strategy="largest", det_threshold=-1.0, batch_size=n)
+        if weights == "tamed":
+            ch.det_model.net.load_state_dict(tamed_state_dict(ch.det_model.net))
+        runs = {}
+        for env in ("0", "1"):
+            os.environ["FCPT_HOST_CROP"] = env
+            nms_kern.launches = 0
+            warp_kern.launches = 0
+            per_request, seconds, results = [], [], []
+            with PathCounter() as paths:
+                for batch in batches[:5]:
+                    before = (nms_kern.launches, warp_kern.launches)
+                    t0 = time.perf_counter()
+                    results.append(ch.process_images(batch)[:2])
+                    seconds.append(time.perf_counter() - t0)
+                    per_request.append((nms_kern.launches - before[0],
+                                        warp_kern.launches - before[1]))
+            fps = sum(len(r[1]) for r in results[1:]) / sum(seconds[1:])
+            runs[env] = (results, per_request, paths.n, fps)
+            log(f"  [{card}] (c) {weights} detector, FCPT_HOST_CROP={env}: {fps:.6f} faces/s "
+                f"over 4 requests after one warm-up (phase 3: {p3_fps:.6f}); (K1, warp) "
+                f"launches per request {per_request}; paths: {paths}; request seconds "
+                + ", ".join(f"{s:.6f}" for s in seconds))
+        os.environ["FCPT_HOST_CROP"] = default_env
+        host_crop_launches[0] += sum(p[0] for p in runs["1"][1])
+        host_crop_launches[1] += sum(p[1] for p in runs["1"][1])
+        host_warp = "native (host)" if runs["1"][2]["host_warps"] else "warp_affine_u8 (card)"
+        diffs = [level_diff(a[0], b[0]) for a, b in zip(runs["0"][0], runs["1"][0])]
+        same_idx = all(np.array_equal(a[1], b[1]) for a, b in zip(runs["0"][0], runs["1"][0]))
+        log(f"  (c) {weights} detector, host-crop mode: detect-only passes "
+            f"{runs['1'][2]['host_crop_batches']}, crops by {host_warp}; indices equal to the "
+            f"default path's {same_idx}; max pixel |diff| per request {[d[0] for d in diffs]} "
+            f"(limit {band}), differing share " + ", ".join(f"{d[1]:.9f}" for d in diffs))
+        if not same_idx or max(d[0] for d in diffs) > band or runs["1"][2]["host_crop_batches"] != 5:
+            raise SystemExit(f"FAIL: host-crop crops ({weights} detector) differ from the "
+                             "default path's")
+        if not rehearse and (min(p[0] for p in runs["1"][1]) < 1
+                             or min(p[1] for p in runs["1"][1]) < 1):
+            raise SystemExit("FAIL: K1 or the warp did not launch on every host-crop request")
+    launches["host_crop"] = tuple(host_crop_launches)
+
+    # (d) the packed wire's device half, on rows packed by the numpy twin.
+    h, w = batches[0].shape[1:3]
+    rows_np = yuv.rgb_to_yuv420_np(batches[0])
+    recon_np = yuv.yuv420_to_rgb_np(rows_np, h, w)
+    dev_rows = torch.from_numpy(rows_np).to(device)
+    recon_eq = np.array_equal(yuv.yuv420_to_rgb(dev_rows, h, w).cpu().numpy(), recon_np)
+    pack_eq = np.array_equal(
+        yuv.rgb_to_yuv420(torch.from_numpy(batches[0]).to(device)).cpu().numpy(), rows_np)
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    with ch._device_lock:
+        got = ch._fused.process(rows_np, ch.resize_size, packed_hw=(h, w))
+        ref = ch._fused.process(recon_np, ch.resize_size)
+    same = all(np.array_equal(a, b) for a, b in zip(got, ref))
+    log(f"  (d) {n}x{h}x{w} rows ({rows_np.shape[1]} B each, packed by rgb_to_yuv420_np): "
+        f"device reconstruction bitwise equal to yuv420_to_rgb_np {recon_eq}; device packing "
+        f"bitwise equal to rgb_to_yuv420_np {pack_eq}; 'largest' on packed rows vs on the "
+        f"reconstruction: crops, landmarks, indices equal {same} ({len(got[2])} faces)")
+    if not (recon_eq and pack_eq and same):
+        raise SystemExit("FAIL: the packed wire's device half differs from its numpy twins")
+    del ch
+    ca = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="all",
+                 det_threshold=-1.0, batch_size=n)
+    stage = {}
+    for label, kw in (("warm-up", {}), ("RGB", {}), ("packed", dict(pack_crops=True))):
+        timer = StageTimer(device)
+        ca._fused.stage_timer = timer
+        t0 = time.perf_counter()
+        res = ca._fused.process(rows_np, ca.resize_size, packed_hw=(h, w), **kw)
+        total = (time.perf_counter() - t0) * 1e3
+        ca._fused.stage_timer = None
+        stage[label] = (res, timer.ms.get("to_host", 0.0), total, timer.ms.get("unpack", 0.0))
+    launches["packed"] = (nms_kern.launches, warp_kern.launches)
+    (rgb, _, rgb_idx), (packed, _, packed_idx) = stage["RGB"][0], stage["packed"][0]
+    chunk = 512
+    checked = [(0, min(chunk, len(rgb))), (max(0, len(rgb) - chunk), len(rgb))]
+    packed_eq = np.array_equal(rgb_idx, packed_idx) and all(
+        np.array_equal(packed[a:b], yuv.rgb_to_yuv420_np(rgb[a:b])) for a, b in checked)
+    log(f"  [{card}] (d) 'all' on packed rows, {len(rgb_idx)} crops: to_host {stage['RGB'][1]:.6f} "
+        f"ms for {rgb.nbytes} B of RGB crops (request {stage['RGB'][2]:.6f} ms) vs "
+        f"{stage['packed'][1]:.6f} ms for {packed.nbytes} B packed on the device (request "
+        f"{stage['packed'][2]:.6f} ms); unpack {stage['RGB'][3]:.6f} ms; packed rows of crops "
+        f"{checked} bitwise equal to rgb_to_yuv420_np of the RGB crops {packed_eq}; "
+        f"(K1, warp) launches {launches['packed']}")
+    if not packed_eq:
+        raise SystemExit("FAIL: the device packing of crops differs from rgb_to_yuv420_np")
+    del ca, stage, rgb, packed
+
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 8 wall time {wall:.3f} s")
+    return dict(launches=launches, fps=rates, wall=wall)
+
+
+def read_rgb(root, name):
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+
+    return imread_rgb(os.path.join(root, os.path.splitext(name)[0] + ".png"))
+
+
 #: f32 operations per output pixel of the warp (coordinates, floor and
 #: fraction, four weights, 3 channels of 4 products and 3 sums, rounding).
 WARP_OPS_PER_PIXEL = 48
@@ -1895,7 +2338,7 @@ def _rows(timings: dict) -> dict:
             for (label, key), t in timings.items()}
 
 
-def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7) -> dict:
+def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -1912,7 +2355,7 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7) -> d
         "replaces": "tools/mosaic_gather_probe.py:40",
         "redesigned": "PR 3",
         "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"]
-        + p7["warp"] + p7["dir_warp"],
+        + p7["warp"] + p7["dir_warp"] + sum(v[1] for v in p8["launches"].values()),
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
@@ -1921,6 +2364,7 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7) -> d
         "launches_parse_directory": p6["dir_warp"],
         "launches_enhance": p7["warp"],
         "launches_enhance_directory": p7["dir_warp"],
+        **{f"launches_{k}": v[1] for k, v in p8["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -1986,6 +2430,9 @@ def main() -> int:
 
     # Cut phase 3b's timed requests, never its width, past this point.
     deadline = time.monotonic() + 780.0
+    # Phases 3-7 hold the device path: crops by the warp kernel, as "auto"
+    # gives on a card, in the CPU rehearsal too (phase 8 sets its own modes).
+    os.environ["FCPT_HOST_CROP"] = "0"
 
     device = torch.device("cpu" if rehearse else "cuda")
     clock = Clock(device)
@@ -2139,6 +2586,11 @@ def main() -> int:
         f"{resize}² → {out_size}² crops: card vs CPU, fused and staged gates, process_dir, "
         "the landmark-free CLI, a TF32 diagnostic")
     p7 = phase7_enhancement(batches, p5, device, card, rehearse)
+
+    # -- phase 8 -----------------------------------------------------------
+    log("phase 8: the host path: the landmark-file mode (process_dir, border modes, with "
+        "BiSeNet, with RRDBNet), the forced host-crop mode, the packed 4:2:0 wire's device half")
+    p8 = phase8_host_path(batches, fps, p5, device, card, rehearse)
     shutil.rmtree(p5["work"], ignore_errors=True)
 
     # -- phase 4 -----------------------------------------------------------
@@ -2151,7 +2603,7 @@ def main() -> int:
         "replaces": "face_crop_plus_tpu/ops/pallas/nms_kernel.py:28",
         "redesigned": "PR 3",
         "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"]
-        + p7["nms"] + p7["dir_nms"],
+        + p7["nms"] + p7["dir_nms"] + sum(v[0] for v in p8["launches"].values()),
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
@@ -2160,6 +2612,7 @@ def main() -> int:
         "launches_parse_directory": p6["dir_nms"],
         "launches_enhance": p7["nms"],
         "launches_enhance_directory": p7["dir_nms"],
+        **{f"launches_{k}": v[0] for k, v in p8["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -2178,7 +2631,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5, p6, p7),
+               all_warp, p5, p6, p7, p8),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

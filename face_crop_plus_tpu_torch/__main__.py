@@ -7,13 +7,16 @@ that explicit flags override (``-c/--config``), negative thresholds mean
 (``-cn``) or in place (``-ci``).  ``-d`` defaults to the card ("auto" means
 "cuda"); ``-d cpu`` runs on the CPU.  ``-ag``/``-mg`` (JSON dicts of class
 indices) parse every crop with BiSeNet into the ``<attr>/<mask>`` and
-``<mask>_mask`` subtrees; ``-dt -1`` without ``-l`` is the landmark-free
-mode (whole images pass through, parsed when groups are set).  ``-et``
-super-resolves images whose mean face factor is at or below it (every
-image in the landmark-free mode); a negative value switches it off.  Flags
-for paths the port does not have yet (landmarks, ``-hc 1``, ``-pu 1``,
-``-pf 1``) reach ``Cropper`` and raise ``NotImplementedError`` there;
-``-si auto`` (multi-GPU sharding) raises here.
+``<mask>_mask`` subtrees; ``-l`` crops from a landmarks file (.json, .csv
+or whitespace .txt) without a detector; ``-dt -1`` without ``-l`` is the
+landmark-free mode (whole images pass through, parsed when groups are
+set).  ``-et`` super-resolves images whose mean face factor is at or below
+it (every image in the landmark-free mode); a negative value switches it
+off.  ``-hc``, ``-pu`` and ``-pf`` set ``FCPT_HOST_CROP``,
+``FCPT_PACK_UPLOAD`` and ``FCPT_PACK_FETCH`` (the host-crop mode and the
+packed 4:2:0 wire; each needs the native host library, which builds only
+where libjpeg is installed).  ``-si auto`` (multi-GPU sharding) raises
+here.
 """
 
 from __future__ import annotations
@@ -65,8 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", "--allow-skew", action="store_true",
                    help="Allow full-affine (skewed) alignment.")
     p.add_argument("-l", "--landmarks", type=str,
-                   help="Path to a landmarks file (json/csv/txt) to skip detection "
-                        "(not ported yet).")
+                   help="Path to a landmarks file (json/csv/txt) to skip detection.")
     p.add_argument("-ag", "--attr-groups", type=json.loads,
                    help='JSON dict of attribute groups, e.g. \'{"glasses": [6]}\'.')
     p.add_argument("-mg", "--mask-groups", type=json.loads,
@@ -116,14 +118,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "'interim' (detector resolution; reference parity).")
     p.add_argument("-pu", "--pack-upload", type=str, default="auto",
                    choices=["auto", "1", "0"],
-                   help="Packed YCbCr 4:2:0 uploads ('1' is not ported yet).")
+                   help="Upload plain 4:2:0 JPEG sources as their stored "
+                        "YCbCr planes (1.5 B/px; RGB reconstruction on the "
+                        "device). 'auto': on off the CPU when the native "
+                        "host library is built.")
     p.add_argument("-pf", "--pack-fetch", type=str, default="auto",
                    choices=["auto", "1", "0"],
-                   help="Packed YCbCr 4:2:0 crop fetches ('1' is not ported yet).")
+                   help="Fetch JPEG-bound crops as device-packed YCbCr 4:2:0 "
+                        "planes (half the device->host bytes; the native "
+                        "raw-data encoder writes them). 'auto': on off the "
+                        "CPU when the native host library is built.")
     p.add_argument("-hc", "--host-crop", type=str, default="auto",
                    choices=["auto", "1", "0"],
-                   help="Warp crops on the host ('1' is not ported yet; the "
-                        "port warps on the device).")
+                   help="Warp crops on the host (the native library's "
+                        "warp) when nothing downstream needs device crops; "
+                        "the device then runs a detect-only program. "
+                        "'auto': on the CPU when the native library is "
+                        "built; on a card only with '1'.")
     return p
 
 

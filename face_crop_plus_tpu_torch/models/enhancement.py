@@ -25,6 +25,10 @@ here.  The 4x tail, whose activations are 16x the input's pixels at 64
 channels, runs in row strips with an exact halo above
 :attr:`RRDBNetwork.tail_max_pixels` input pixels, so a large original in
 the landmark-free mode keeps its tail tensors bounded.
+
+Packed 4:2:0 sources (``src_hw``) are reconstructed on the device before
+the network, and ``pack_out`` packs the enhanced images on the device for
+JPEG-bound saves (:mod:`..ops.yuv`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from torch import nn
 
 from ..ops.nn import conv, downscale4x_bicubic, upsample2x_nearest
 from ..ops.warp import to_uint8
+from ..ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
 from ..utils.device import f32_precision, resolve_device
 from .weights import load_or_init
 
@@ -247,26 +252,44 @@ class RRDBNet:
             outs.append(self._sr_uint8(chunk)[:valid])
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-    def enhance_images(self, images: np.ndarray) -> np.ndarray:
+    def enhance_images(self, images: np.ndarray, src_hw=None, pack_out: bool = False) -> np.ndarray:
         """Enhances a uniform host uint8 (N, H, W, 3) batch; returns a host
-        array.  Each sub-batch goes up, through the network and back."""
+        array.  Each sub-batch goes up, through the network and back.
+
+        ``src_hw`` marks ``images`` as packed 4:2:0 rows (N, L) of that
+        (h, w), reconstructed on the device; ``pack_out`` returns packed
+        rows (N, L), packed on the device (even h and w, callers gate).
+        """
         images = np.ascontiguousarray(images)
-        out = np.empty_like(images)
+        h, w = src_hw if src_hw is not None else images.shape[1:3]
+        shape = (packed_length((w, h)),) if pack_out else (h, w, 3)
+        out = np.empty((len(images),) + shape, np.uint8)
         for start, valid, rows in self._chunks(len(images)):
             chunk = torch.from_numpy(images[rows]).to(self.device)
-            out[start : start + valid] = self._sr_uint8(chunk)[:valid].cpu().numpy()
+            if src_hw is not None:
+                chunk = yuv420_to_rgb(chunk, *src_hw)
+            res = self._sr_uint8(chunk)
+            if pack_out:
+                res = rgb_to_yuv420(res)
+            out[start : start + valid] = res[:valid].cpu().numpy()
         return out
 
-    def predict(self, images, landmarks: np.ndarray | None, indices: list[int] | None):
+    def predict(self, images, landmarks: np.ndarray | None, indices: list[int] | None,
+                pack_out: bool = False):
         """Enhances the images whose mean face factor is <= the threshold.
 
         Args:
             images: A uniform uint8 (N, H, W, 3) host array or device
-                tensor, or a list of host arrays (of one shape or ragged).
+                tensor, or a list of host arrays (of one shape or ragged)
+                and :class:`..utils.io.PackedYUVImage` entries, which are
+                reconstructed on the device.
             landmarks: (F, 5, 2) landmarks in ``images``' coordinates, or
                 None: then every image is enhanced.
             indices: Length-F map from each face to its image (None with
                 ``landmarks``).
+            pack_out: List input only: enhanced images of even dimensions
+                come back as :class:`..utils.io.PackedYUVImage` (packed on
+                the device) for JPEG-bound saves.
 
         Returns:
             ``images`` with the gated ones enhanced, of the same kind: an
@@ -274,6 +297,8 @@ class RRDBNet:
             nothing gated (or no image) ``images`` itself comes back.
             Images without a face are never gated.
         """
+        if pack_out and not isinstance(images, list):
+            raise ValueError("pack_out requires list input")
         n = len(images)
         if n == 0:
             return images
@@ -298,13 +323,23 @@ class RRDBNet:
             out[gated] = self.enhance_images(out[gated])
             return out
 
-        # A ragged list: one bucket of gated images per shape.
+        # A ragged list: one bucket of gated images per shape (packed
+        # sources apart from RGB arrays of the same dimensions).
+        from ..utils.io import PackedYUVImage
+
         out = list(images)
         by_shape = defaultdict(list)
         for i in gated:
-            by_shape[images[i].shape].append(i)
+            by_shape[getattr(images[i], "group_key", images[i].shape)].append(i)
         for ids in by_shape.values():
-            sub = self.enhance_images(np.stack([images[i] for i in ids]))
+            first = images[ids[0]]
+            h, w = first.shape[:2]
+            pack = pack_out and h % 2 == 0 and w % 2 == 0
+            if isinstance(first, PackedYUVImage):
+                stack, src_hw = np.stack([images[i].packed for i in ids]), (h, w)
+            else:
+                stack, src_hw = np.stack([images[i] for i in ids]), None
+            sub = self.enhance_images(stack, src_hw, pack)
             for j, i in enumerate(ids):
-                out[i] = sub[j]
+                out[i] = PackedYUVImage(sub[j], h, w) if pack else sub[j]
         return out

@@ -10,7 +10,9 @@ centres, as two products) → ImageNet normalization → BiSeNet (ResNet-18
 trunk, context path, feature fusion) → 8× align-corners bilinear upsample of
 the logits → argmax → nearest resize back to the crop size → a 19-bin
 count per face.  Only the (F, 19) counts and, for mask groups, bit-packed
-masks come back to the host, where membership is decided.
+masks come back to the host, where membership is decided.  Packed 4:2:0
+sources (``src_hw``) are reconstructed on the device first
+(:func:`..ops.yuv.yuv420_to_rgb`).
 
 The network runs NCHW with module paths that give the JAX package's
 parameter names (``cp.resnet.layer1.0.conv1``, ``cp.arm32``,
@@ -38,6 +40,7 @@ from ..ops.nn import (
     resize_bilinear_nchw,
     resize_nearest,
 )
+from ..ops.yuv import yuv420_to_rgb
 from ..utils.batching import pad_batch_to
 from ..utils.device import f32_precision, resolve_device
 from .weights import load_or_init
@@ -266,9 +269,12 @@ class BiSeNet:
             x = (x - mean[:, None, None]) / std[:, None, None]
             return self.net(x)
 
-    def _parse(self, images: torch.Tensor, out_h: int, out_w: int):
+    def _parse(self, images: torch.Tensor, out_h: int, out_w: int, src_hw=None):
         """uint8 (B, H, W, 3) crops on the device → (labels (B, out_h, out_w)
-        uint8, counts (B, 19) int32), both on the device."""
+        uint8, counts (B, 19) int32), both on the device.  With ``src_hw``
+        the images are packed 4:2:0 rows (B, L) of that (h, w)."""
+        if src_hw is not None:
+            images = yuv420_to_rgb(images, *src_hw)
         labels = self._logits(images).argmax(dim=1).to(torch.uint8)
         labels = resize_nearest(labels[:, None], (out_h, out_w))[:, 0]
         b = labels.shape[0]
@@ -278,7 +284,7 @@ class BiSeNet:
         return labels, counts.reshape(b, NUM_CLASSES).to(torch.int32)
 
     def _parse_packed(self, images: torch.Tensor, out_h: int, out_w: int,
-                      mask_attrs: tuple):
+                      mask_attrs: tuple, src_hw=None):
         """Like :meth:`_parse`, with bit-packed per-group masks for labels.
 
         Each group's mask is padded on the right to a multiple of 8 columns
@@ -288,7 +294,7 @@ class BiSeNet:
             uint8 packed masks (G, B, out_h, ceil(out_w/8)) and int32 counts
             (B, 19), on the device.
         """
-        labels, counts = self._parse(images, out_h, out_w)
+        labels, counts = self._parse(images, out_h, out_w, src_hw)
         w8 = -(-out_w // 8)
         weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=labels.device)
         packed = []
@@ -320,23 +326,22 @@ class BiSeNet:
             yield chunk, start, valid
 
     @staticmethod
-    def _check_src_hw(src_hw):
-        if src_hw is not None:
-            raise NotImplementedError(
-                "packed YCbCr 4:2:0 sources (src_hw) are not ported yet"
-            )
+    def _out_hw(images, src_hw) -> tuple[int, int]:
+        return src_hw if src_hw is not None else tuple(images.shape[1:3])
 
     def parse_batch(self, images, src_hw=None) -> tuple[np.ndarray, np.ndarray]:
         """Parses every face in sub-batches of ``batch_size``.
 
-        Returns host arrays: uint8 labels (N, H, W) and int32 counts (N, 19).
+        ``src_hw`` marks ``images`` as packed 4:2:0 rows (N, L) of that
+        (h, w).  Returns host arrays: uint8 labels (N, H, W) and int32
+        counts (N, 19).
         """
-        self._check_src_hw(src_hw)
-        n, h, w = images.shape[:3]
+        n = images.shape[0]
+        h, w = self._out_hw(images, src_hw)
         labels_out = np.empty((n, h, w), np.uint8)
         counts_out = np.empty((n, NUM_CLASSES), np.int32)
         for imgs, start, valid in self._sub_batches(images):
-            labels, counts = self._parse(imgs, h, w)
+            labels, counts = self._parse(imgs, h, w, src_hw)
             labels_out[start : start + valid] = labels[:valid].cpu().numpy()
             counts_out[start : start + valid] = counts[:valid].cpu().numpy()
         return labels_out, counts_out
@@ -344,11 +349,11 @@ class BiSeNet:
     def parse_counts(self, images, src_hw=None) -> np.ndarray:
         """Per-face class pixel counts (N, 19) int32 only; the labels stay
         on the device."""
-        self._check_src_hw(src_hw)
-        n, h, w = images.shape[:3]
+        n = images.shape[0]
+        h, w = self._out_hw(images, src_hw)
         counts_out = np.empty((n, NUM_CLASSES), np.int32)
         for imgs, start, valid in self._sub_batches(images):
-            _labels, counts = self._parse(imgs, h, w)
+            _labels, counts = self._parse(imgs, h, w, src_hw)
             counts_out[start : start + valid] = counts[:valid].cpu().numpy()
         return counts_out
 
@@ -359,12 +364,12 @@ class BiSeNet:
         Returns host arrays: uint8 packed masks (G, N, H, ceil(W/8)) and
         int32 counts (N, 19).
         """
-        self._check_src_hw(src_hw)
-        n, h, w = images.shape[:3]
+        n = images.shape[0]
+        h, w = self._out_hw(images, src_hw)
         packed_out = np.empty((len(mask_attrs), n, h, -(-w // 8)), np.uint8)
         counts_out = np.empty((n, NUM_CLASSES), np.int32)
         for imgs, start, valid in self._sub_batches(images):
-            packed, counts = self._parse_packed(imgs, h, w, mask_attrs)
+            packed, counts = self._parse_packed(imgs, h, w, mask_attrs, src_hw)
             packed_out[:, start : start + valid] = packed[:, :valid].cpu().numpy()
             counts_out[start : start + valid] = counts[:valid].cpu().numpy()
         return packed_out, counts_out
@@ -432,7 +437,8 @@ class BiSeNet:
                 tensor (crops already on the device).
             valid_n: Only faces with index < ``valid_n`` join a group (a
                 batch that carries padding rows at its end).
-            src_hw: Packed 4:2:0 sources; not ported, raises.
+            src_hw: When set, ``images`` is packed 4:2:0 rows (N, L) of
+                this (h, w), reconstructed on the device.
 
         Returns:
             ``attr_groups`` (name → face indices) and ``mask_groups`` (name
@@ -440,19 +446,20 @@ class BiSeNet:
             dropped; either is None when not configured.  Only counts and,
             with mask groups, bit-packed masks leave the device.
         """
-        self._check_src_hw(src_hw)
         if isinstance(images, list):
             images = np.stack(images)
         if not torch.is_tensor(images):
             images = np.asarray(images, np.uint8)
+        if src_hw is not None:
+            src_hw = (int(src_hw[0]), int(src_hw[1]))
 
         if self.mask_groups is not None:
             mask_attrs = tuple(
                 tuple(int(a) for a in attrs) for attrs in self.mask_groups.values()
             )
-            packed, counts = self.parse_batch_packed(images, mask_attrs)
+            packed, counts = self.parse_batch_packed(images, mask_attrs, src_hw)
         else:
-            packed, counts = None, self.parse_counts(images)
+            packed, counts = None, self.parse_counts(images, src_hw)
 
         attr_groups = None
         if self.attr_groups is not None:
@@ -463,7 +470,8 @@ class BiSeNet:
 
         mask_groups = None
         if self.mask_groups is not None:
-            mask_groups = self.group_by_masks_packed(packed, counts, int(images.shape[2]))
+            width = self._out_hw(images, src_hw)[1]
+            mask_groups = self.group_by_masks_packed(packed, counts, int(width))
             if valid_n is not None:
                 filtered = {}
                 for k, (inds, masks) in mask_groups.items():

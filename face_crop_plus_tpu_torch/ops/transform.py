@@ -3,12 +3,14 @@
 Counterpart of ``face_crop_plus_tpu.ops.transform``: the least-squares fits
 that OpenCV's ``estimateAffinePartial2D`` / ``estimateAffine2D`` compute
 without RANSAC, in closed form for the whole face batch, plus the batched
-inverse.  Transforms are 2x3 matrices ``M = [A | t]`` mapping source pixel
-coordinates to destination coordinates, as in OpenCV.
+inverse, and the numpy twins of both fits for host-side fits.  Transforms
+are 2x3 matrices ``M = [A | t]`` mapping source pixel coordinates to
+destination coordinates, as in OpenCV.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -101,6 +103,79 @@ def estimate_affine(src, dst) -> tuple[torch.Tensor, torch.Tensor]:
     det_a = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
     valid = valid & (torch.abs(det_a) > 1e-12)
     return m, valid
+
+
+def estimate_similarity_np(src, dst):
+    """Numpy twin of :func:`estimate_similarity` for host-side fits.
+
+    A copy of the JAX package's twin (the same f32 expressions): pipelines
+    without a model, and the host-crop mode, fit on the host, where a
+    device fit would cost an upload and a fetch per batch for microseconds
+    of arithmetic.
+    """
+    src = np.asarray(src, np.float32)
+    dst = np.broadcast_to(np.asarray(dst, np.float32), src.shape)
+
+    src_mean = src.mean(axis=-2)
+    dst_mean = dst.mean(axis=-2)
+    s = src - src_mean[..., None, :]
+    d = dst - dst_mean[..., None, :]
+
+    denom = (s * s).sum(axis=(-1, -2))
+    valid = denom > 1e-12
+    safe = np.where(valid, denom, 1.0)
+
+    a = (s * d).sum(axis=(-1, -2)) / safe
+    b = (s[..., 0] * d[..., 1] - s[..., 1] * d[..., 0]).sum(axis=-1) / safe
+
+    tx = dst_mean[..., 0] - (a * src_mean[..., 0] - b * src_mean[..., 1])
+    ty = dst_mean[..., 1] - (b * src_mean[..., 0] + a * src_mean[..., 1])
+
+    row0 = np.stack([a, -b, tx], axis=-1)
+    row1 = np.stack([b, a, ty], axis=-1)
+    valid = valid & (a * a + b * b > 1e-12)
+    return np.stack([row0, row1], axis=-2), valid
+
+
+def estimate_affine_np(src, dst):
+    """Numpy twin of :func:`estimate_affine` (see estimate_similarity_np)."""
+    src = np.asarray(src, np.float32)
+    dst = np.broadcast_to(np.asarray(dst, np.float32), src.shape)
+
+    src_mean = src.mean(axis=-2)
+    dst_mean = dst.mean(axis=-2)
+    s = src - src_mean[..., None, :]
+    d = dst - dst_mean[..., None, :]
+
+    scale = np.sqrt((s * s).sum(axis=(-1, -2)) / s.shape[-2])
+    valid_scale = scale > 1e-6
+    safe_scale = np.where(valid_scale, scale, 1.0)[..., None, None]
+    s = s / safe_scale
+
+    sts = np.einsum("...li,...lj->...ij", s, s)
+    std = np.einsum("...li,...lj->...ij", s, d)
+
+    det = sts[..., 0, 0] * sts[..., 1, 1] - sts[..., 0, 1] * sts[..., 1, 0]
+    valid = valid_scale & (np.abs(det) > 1e-8)
+    safe_det = np.where(valid, det, 1.0)
+
+    inv = np.stack(
+        [
+            np.stack([sts[..., 1, 1] / safe_det, -sts[..., 0, 1] / safe_det],
+                     axis=-1),
+            np.stack([-sts[..., 1, 0] / safe_det, sts[..., 0, 0] / safe_det],
+                     axis=-1),
+        ],
+        axis=-2,
+    )
+
+    a = np.swapaxes(np.einsum("...ij,...jk->...ik", inv, std), -1, -2)
+    a = a / safe_scale
+    t = dst_mean - np.einsum("...ij,...j->...i", a, src_mean)
+    m = np.concatenate([a, t[..., None]], axis=-1)
+    det_a = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    valid = valid & (np.abs(det_a) > 1e-12)
+    return m.astype(np.float32), valid
 
 
 def invert_affine(m: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,13 @@ factor: gated images are super-resolved at interim resolution and their
 faces crop from the enhanced interim, the others crop as without an
 enhancer.
 
-Packed 4:2:0 uploads and meshes are not ported yet; the Cropper refuses
-them.
+Packed 4:2:0 uploads (``packed_hw``): the batch arrives as (N, L) rows
+of stored YCbCr planes at 1.5 bytes a pixel, and the RGB reconstruction
+(:func:`.ops.yuv.yuv420_to_rgb`) runs on the device first and stays
+resident as the batch every path above detects on and crops from.
+Packed fetches (``pack_crops``): the host-bound copy of the crops is
+packed on the device (:func:`.ops.yuv.rgb_to_yuv420`) before it comes
+down; a device handoff stays RGB.  Meshes are not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from .ops.cuda.warp import warp_affine_u8
 from .ops.nn import resize_bilinear
 from .ops.transform import estimate_affine, estimate_similarity
 from .ops.warp import to_uint8
+from .ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
 from .utils.batching import next_pow2
 
 
@@ -108,10 +114,12 @@ class FusedPipeline:
     context manager; each stage runs inside it (:attr:`STAGES`).  "compact"
     is the two-program path's host compaction (validity to the host, kept
     slots); "fit_warp" and "to_host" recur once per crop chunk there.
-    "enhance" is the super-resolution of the gated interim rows.
+    "enhance" is the super-resolution of the gated interim rows; "unpack"
+    the device reconstruction of packed 4:2:0 uploads.
     """
 
-    STAGES = ("resize_pad", "network", "select", "compact", "enhance", "fit_warp", "to_host")
+    STAGES = ("unpack", "resize_pad", "network", "select", "compact", "enhance", "fit_warp",
+              "to_host")
 
     #: Faces per crop dispatch on the two-program path: bounds the crop
     #: buffer of one chunk (512 × 256² × 3 B = 100.7 MB) whatever a crowd
@@ -245,17 +253,18 @@ class FusedPipeline:
         )
         return crops, ok
 
-    def _crop_selected_chunked(self, imgs, face_lm, keep: np.ndarray, lm_scale=1.0, window=None):
+    def _crop_selected_chunked(self, imgs, face_lm, keep: np.ndarray, lm_scale=1.0, window=None,
+                               pack: bool = False):
         """Runs :meth:`_crop_selected` over ``keep`` in bounded chunks.
 
-        Returns host crops (F, Ho, Wo, 3), an ok mask (F,), and the device
-        crop array when a single chunk covered everything (else None).
-        Each chunk's crops are copied straight into their rows of the host
-        array.
+        Returns host crops (F, Ho, Wo, 3), or with ``pack`` packed 4:2:0
+        rows (F, L), an ok mask (F,), and the (RGB) device crop array when
+        a single chunk covered everything (else None).  Each chunk's crops
+        are copied straight into their rows of the host array.
         """
         f = len(keep)
         chunk = self.max_warp_chunk
-        crops = np.empty((f,) + self._empty_crops().shape[1:], np.uint8)
+        crops = np.empty((f,) + self._empty_crops(pack).shape[1:], np.uint8)
         ok = np.empty(f, bool)
         dev_handle = None
         for s in range(0, f, chunk):
@@ -269,15 +278,29 @@ class FusedPipeline:
             if f <= chunk:
                 dev_handle = dev_crops
             with self._stage("to_host"):
-                torch.from_numpy(crops[s : s + len(sub)]).copy_(dev_crops[: len(sub)])
+                fetch = dev_crops[: len(sub)]
+                if pack:
+                    fetch = rgb_to_yuv420(fetch)
+                torch.from_numpy(crops[s : s + len(sub)]).copy_(fetch)
                 ok[s : s + len(sub)] = dev_ok[: len(sub)].cpu().numpy()
         return crops, ok, dev_handle
 
-    def _empty_crops(self) -> np.ndarray:
+    def _upload(self, images: np.ndarray, packed_hw) -> torch.Tensor:
+        """The uint8 batch on the device: RGB as it is, or packed rows
+        reconstructed there (stage "unpack")."""
+        imgs = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        if packed_hw is None:
+            return imgs
+        with self._stage("unpack"):
+            return yuv420_to_rgb(imgs, *packed_hw)
+
+    def _empty_crops(self, pack: bool = False) -> np.ndarray:
+        if pack:
+            return np.zeros((0, packed_length(self.output_size)), np.uint8)
         return np.zeros((0,) + self.output_size[::-1] + (3,), np.uint8)
 
-    def _empty_result(self, return_device_crops: bool):
-        empty = self._empty_crops()
+    def _empty_result(self, return_device_crops: bool, pack: bool = False):
+        empty = self._empty_crops(pack)
         lm0 = np.zeros((0, 5, 2), np.float32)
         idx0 = np.zeros((0,), np.int64)
         return (empty, lm0, idx0, None) if return_device_crops else (empty, lm0, idx0)
@@ -288,20 +311,28 @@ class FusedPipeline:
         interim_size: tuple[int, int],
         return_device_crops: bool = False,
         valid_n: int | None = None,
+        pack_crops: bool = False,
+        packed_hw: tuple[int, int] | None = None,
     ):
         """Runs the batch; returns host (crops, landmarks, indices).
 
         Args:
-            images: Uniform uint8 (N, H, W, 3) batch (original resolution).
+            images: Uniform uint8 (N, H, W, 3) batch (original resolution),
+                or with ``packed_hw`` (N, L) packed 4:2:0 rows.
             interim_size: Detector (width, height).
             return_device_crops: Also return the compacted crops as a device
                 tensor, padded to a power-of-two face bucket (rows beyond F
                 repeat the last face), for a downstream device consumer.
             valid_n: Number of leading real rows when the caller padded the
                 batch; faces of later rows never surface.  Defaults to N.
+            pack_crops: Fetch the crops as packed 4:2:0 rows (F, L) instead
+                of RGB; even output dimensions only (callers gate).  The
+                device handoff stays RGB.
+            packed_hw: Source (height, width) of packed rows; the
+                reconstruction runs on the device and stays resident.
 
         Returns:
-            Compacted uint8 crops (F, Ho, Wo, 3), float32 landmarks
+            Compacted uint8 crops (F, Ho, Wo, 3) (or packed rows), float32 landmarks
             (F, 5, 2) in source coordinates and int64 face→image indices
             (F,); with ``return_device_crops`` a 4th element, the device
             crop tensor of bucketed length F' >= F, or None when the
@@ -311,7 +342,7 @@ class FusedPipeline:
         n = images.shape[0]
         valid_n = n if valid_n is None else min(int(valid_n), n)
         iw, ih = interim_size
-        imgs = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        imgs = self._upload(images, packed_hw)
 
         # Strategy "all" runs the detect pass alone; the host compacts the
         # sparse face grid once and the crop chunks warp exactly the kept
@@ -319,7 +350,7 @@ class FusedPipeline:
         # an enhancer, which needs the interim.
         enhanced = self.enh is not None
         two_program = self.det.strategy == "all"
-        h, w = images.shape[1:3]
+        h, w = imgs.shape[1:3]
         interim_crops = self.crop_source == "interim" and (h, w) != (ih, iw)
 
         def dispatch(args):
@@ -336,7 +367,8 @@ class FusedPipeline:
         out = self.det.dispatch_with_growth(dispatch, num_anchors(ih, iw), valid_n)
 
         if enhanced:
-            return self._finish_enhanced(out, imgs, (ih, iw), valid_n, return_device_crops)
+            return self._finish_enhanced(out, imgs, (ih, iw), valid_n, return_device_crops,
+                                         pack_crops)
 
         if two_program:
             dev_face_lm, dev_valid, _caps, src_imgs = out
@@ -344,14 +376,14 @@ class FusedPipeline:
             with self._stage("compact"):
                 keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
             if len(keep) == 0:
-                return self._empty_result(return_device_crops)
+                return self._empty_result(return_device_crops, pack_crops)
 
             lm_scale, window = 1.0, None
             if interim_crops:
                 lm_scale, win = self._interim_window(h, w, ih, iw)
                 window = torch.tensor(win, dtype=torch.int32, device=self.device)
             crops_k, ok, dev_handle = self._crop_selected_chunked(
-                src_imgs, dev_face_lm, keep, lm_scale, window
+                src_imgs, dev_face_lm, keep, lm_scale, window, pack_crops
             )
             with self._stage("to_host"):
                 face_lm = dev_face_lm.cpu().numpy()[keep][ok]
@@ -366,7 +398,8 @@ class FusedPipeline:
         dev_crops, dev_face_lm, dev_valid = out[0], out[1], out[2]
         k = dev_valid.shape[0] // n
         with self._stage("to_host"):
-            crops = dev_crops[: valid_n * k].cpu().numpy()
+            fetch = dev_crops[: valid_n * k]
+            crops = (rgb_to_yuv420(fetch) if pack_crops else fetch).cpu().numpy()
             face_lm = dev_face_lm[: valid_n * k].cpu().numpy()
             valid = dev_valid[: valid_n * k].cpu().numpy()
         keep = np.nonzero(valid)[0]
@@ -383,7 +416,8 @@ class FusedPipeline:
         dev_compact = dev_crops.index_select(0, torch.from_numpy(sel).to(self.device))
         return crops[keep], face_lm[keep], indices, dev_compact
 
-    def _finish_enhanced(self, out, imgs, interim_hw, valid_n: int, return_device_crops: bool):
+    def _finish_enhanced(self, out, imgs, interim_hw, valid_n: int, return_device_crops: bool,
+                         pack: bool = False):
         """Gate → super-resolution → crop, after the detect pass.
 
         Counterpart of the single-card branch of the JAX
@@ -397,8 +431,9 @@ class FusedPipeline:
         rows inside the interim's un-padded window (the JAX
         ``_crop_gated``), in chunks of :attr:`max_warp_chunk`.
 
-        Returns what :meth:`process` returns; the device crops are handed
-        on only when no face was gated and every fit was sound.
+        Returns what :meth:`process` returns (packed rows with ``pack``);
+        the device crops are handed on only when no face was gated and
+        every fit was sound.
         """
         dev_face_lm, dev_valid, _caps, dev_interim = out
         ih, iw = interim_hw
@@ -407,7 +442,7 @@ class FusedPipeline:
         with self._stage("compact"):
             keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
         if len(keep) == 0:
-            return self._empty_result(return_device_crops)
+            return self._empty_result(return_device_crops, pack)
         face_lm = dev_face_lm.cpu().numpy()[keep]  # (F, 5, 2) source coordinates
         indices = (keep // k).astype(np.int64)
 
@@ -417,7 +452,7 @@ class FusedPipeline:
         gated = np.nonzero(np.isfinite(factors) & (factors <= self.enh.min_face_factor))[0]
         is_gated = np.isin(indices, gated)
 
-        crops_all = np.empty((len(keep),) + self._empty_crops().shape[1:], np.uint8)
+        crops_all = np.empty((len(keep),) + self._empty_crops(pack).shape[1:], np.uint8)
         ok_all = np.zeros(len(keep), bool)
         dev_handle = None
 
@@ -425,11 +460,11 @@ class FusedPipeline:
         if len(plain_pos):
             if self.crop_source == "interim":
                 crops_p, ok_p, dev_handle = self._crop_selected_chunked(
-                    dev_interim, dev_face_lm, keep[plain_pos], scale, window
+                    dev_interim, dev_face_lm, keep[plain_pos], scale, window, pack
                 )
             else:
                 crops_p, ok_p, dev_handle = self._crop_selected_chunked(
-                    imgs, dev_face_lm, keep[plain_pos]
+                    imgs, dev_face_lm, keep[plain_pos], pack=pack
                 )
             crops_all[plain_pos] = crops_p
             ok_all[plain_pos] = ok_p
@@ -454,7 +489,7 @@ class FusedPipeline:
                         window[None].expand(len(pos), 4).contiguous(),
                     )
                 with self._stage("to_host"):
-                    crops_all[pos] = crops.cpu().numpy()
+                    crops_all[pos] = (rgb_to_yuv420(crops) if pack else crops).cpu().numpy()
                     ok_all[pos] = ok.cpu().numpy()
 
         crops, face_lm, indices = crops_all[ok_all], face_lm[ok_all], indices[ok_all]
@@ -463,17 +498,29 @@ class FusedPipeline:
         return crops, face_lm, indices, (dev_handle if ok_all.all() else None)
 
     def detect_only(
-        self, images: np.ndarray, interim_size: tuple[int, int], valid_n: int | None = None
+        self,
+        images: np.ndarray,
+        interim_size: tuple[int, int],
+        valid_n: int | None = None,
+        packed_hw: tuple[int, int] | None = None,
     ):
         """Detect-only pass: host (landmarks (F, 5, 2), face→image indices (F,)).
 
-        For callers that warp elsewhere: only landmarks and validity leave
-        the device.
+        For callers that warp elsewhere (the host-crop mode): only
+        landmarks and validity leave the device.  With ``packed_hw`` the
+        batch is packed 4:2:0 rows, reconstructed on the device for the
+        detector; the caller warps its own twin of the reconstruction.
         """
-        return self.detect_only_finish(self.detect_only_async(images, interim_size, valid_n))
+        return self.detect_only_finish(
+            self.detect_only_async(images, interim_size, valid_n, packed_hw)
+        )
 
     def detect_only_async(
-        self, images: np.ndarray, interim_size: tuple[int, int], valid_n: int | None = None
+        self,
+        images: np.ndarray,
+        interim_size: tuple[int, int],
+        valid_n: int | None = None,
+        packed_hw: tuple[int, int] | None = None,
     ) -> dict:
         """Dispatch half of :meth:`detect_only`; returns an in-flight handle.
 
@@ -486,7 +533,7 @@ class FusedPipeline:
         n = images.shape[0]
         valid_n = n if valid_n is None else min(int(valid_n), n)
         iw, ih = interim_size
-        imgs = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        imgs = self._upload(images, packed_hw)
 
         def dispatch(args):
             out = self._detect_trace(imgs, ih, iw, args)[:3]  # landmarks, valid, caps

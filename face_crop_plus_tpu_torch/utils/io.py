@@ -1,12 +1,15 @@
 """Host-side image I/O: decode, encode, directory reading.
 
-Counterpart of ``face_crop_plus_tpu.utils.io`` (``:36-193`` and
-``read_images`` ``:267-411`` without its packed 4:2:0 branch).  Codecs are
-host work.  JPEG files decode through the native libjpeg decoder
+Counterpart of ``face_crop_plus_tpu.utils.io``.  Codecs are host work.  JPEG files decode through the native libjpeg decoder
 (:mod:`.native_io`) when it builds; everything else, and every file it
 fails on, through OpenCV, then Pillow: the JAX package's order.
 Unreadable files warn and are skipped while index alignment is kept; color
 images are saved via BGR (OpenCV's convention); masks are single-channel.
+
+Packed 4:2:0 sources: ``read_images(want_packed=True)`` decodes plain
+EXIF-upright 4:2:0 JPEGs to their stored planes (:class:`PackedYUVImage`),
+which the device reconstructs (:func:`..ops.yuv.yuv420_to_rgb`), and
+:func:`imwrite_yuv420` writes packed rows through the raw-data encoder.
 """
 
 from __future__ import annotations
@@ -209,6 +212,66 @@ def imwrite(path: str, image: np.ndarray) -> bool:
                 pass
 
 
+def imwrite_yuv420(path: str, packed: np.ndarray, output_size: tuple[int, int]) -> bool:
+    """Writes one packed YCbCr 4:2:0 row of an (width, height) crop as a JPEG.
+
+    The rows come from :func:`..ops.yuv.rgb_to_yuv420` (or the host warp
+    of packed sources); the native raw-data encoder takes them with cv2's
+    JPEG defaults (quality 95, 4:2:0).  The same temp file and atomic
+    rename as :func:`imwrite`.  False when the native encoder is missing or
+    the encode fails.
+    """
+    base, ext = os.path.splitext(path)
+    tmp = f"{base}.tmp-{os.getpid()}{ext}"
+    try:
+        if not native_io.encode_jpeg_yuv420(tmp, packed, output_size):
+            return False
+        os.replace(tmp, path)
+        return True
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.unlink(tmp)
+            except OSError:  # pragma: no cover
+                pass
+
+
+class PackedYUVImage:
+    """A JPEG source decoded to its stored YCbCr 4:2:0 planes (host side).
+
+    ``packed`` is the (L,) row of planes Y|Cb|Cr at 1.5 bytes a pixel.
+    ``shape`` serves the Cropper's shape bookkeeping, ``group_key`` keeps
+    packed sources out of RGB groups of the same dimensions, and
+    :meth:`to_rgb` gives the numpy twin of the device reconstruction.
+    """
+
+    __slots__ = ("packed", "h", "w")
+
+    def __init__(self, packed: np.ndarray, h: int, w: int):
+        self.packed = packed
+        self.h = h
+        self.w = w
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.h, self.w, 3)
+
+    @property
+    def group_key(self):
+        """Fused-group key: packed sources never mix with RGB arrays."""
+        return ("yuv420", self.h, self.w)
+
+    def to_rgb(self) -> np.ndarray:
+        from ..ops.yuv import yuv420_to_rgb_np
+
+        return yuv420_to_rgb_np(self.packed, self.h, self.w)
+
+
+def unpack_images(images: list) -> list:
+    """Replaces any :class:`PackedYUVImage` entries with RGB arrays."""
+    return [im.to_rgb() if isinstance(im, PackedYUVImage) else im for im in images]
+
+
 def _pool_map(fn, items: list, n_threads: int) -> list:
     """``map`` over a thread pool when there is more than one item."""
     if len(items) > 1 and n_threads > 1:
@@ -222,6 +285,7 @@ def read_images(
     input_dir: str,
     target_max: int | None = None,
     n_threads: int = 8,
+    want_packed: bool = False,
 ) -> tuple[list[np.ndarray], np.ndarray]:
     """Reads a batch of images from a directory.
 
@@ -237,9 +301,15 @@ def read_images(
     transpose); ``FCPT_FAST_DECODE=1`` trades a few intensity levels on
     chroma-subsampled files for throughput.
 
+    With ``want_packed``, plain 4:2:0 JPEGs that are EXIF-upright and
+    decode at full scale decode to :class:`PackedYUVImage` (entropy decode
+    and IDCT only); rotated files, other samplings, files decoded at a
+    reduced DCT scale and non-JPEG files still decode to RGB.
+
     Returns:
-        Tuple of a list of RGB uint8 (H, W, 3) arrays and the corresponding
-        (N,) file name array.
+        Tuple of a list of RGB uint8 (H, W, 3) arrays (and, with
+        ``want_packed``, :class:`PackedYUVImage` entries) and the
+        corresponding (N,) file name array.
     """
     fast = os.environ.get("FCPT_FAST_DECODE", "0") == "1"
     paths = [os.path.join(input_dir, f) for f in file_names]
@@ -257,6 +327,25 @@ def read_images(
                 denom = native_io.pick_scale_denom(dims, target_max) if dims else 1
                 by_denom.setdefault(denom, []).append(i)
         for denom, ids in by_denom.items():
+            if want_packed and denom == 1:
+                # Rotated files keep the RGB path (orientation transforms
+                # on subsampled planes are lossy); the header scan runs
+                # before any decode, so no file is entropy-decoded twice.
+                # Files that decode at a reduced DCT scale keep it too: the
+                # native planar decoder's chroma is wrong there (luma is
+                # right), where the JAX package packs them all the same.
+                orients = _pool_map(jpeg_exif_orientation, [paths[i] for i in ids], n_threads)
+                upright = [i for i, o in zip(ids, orients) if o == 1]
+                ids = [i for i, o in zip(ids, orients) if o != 1]
+                packed = native_io.decode_yuv420_batch(
+                    [paths[i] for i in upright], scale_denom=denom, n_threads=n_threads
+                )
+                for i, res in zip(upright, packed):
+                    if res is None:
+                        ids.append(i)
+                    else:
+                        results[i] = PackedYUVImage(*res)
+                        native_ok.add(i)
             decoded = native_io.decode_batch(
                 [paths[i] for i in ids], scale_denom=denom, n_threads=n_threads, fast=fast
             )

@@ -6,8 +6,12 @@ both packages read) and ``-d cpu``; the trees must have equal names and
 pixels within ±1 (``-hc 0``: both warp in f32).  Argument parsing,
 including the ``-c`` JSON layering, must give the JAX CLI's kwargs; the
 landmark-free mode (``-dt -1``), parsing (``-ag``, ``-mg``) and enhancement
-(``-et``) write the JAX CLI's tree; flags for paths the port does not have
-yet must raise.
+(``-et``) write the JAX CLI's tree; so do the host path's flags: a
+landmarks file (``-l``, byte for byte), the host-crop mode (``-hc 1``) and
+packed uploads (``-pu 1``) within ±1, packed fetches (``-pf 1``, JPEG
+files of rows within ±1, both warping in float: ``FCPT_NATIVE_WARP=0``)
+within 0.5 levels in mean and 8 at most.  ``-si auto`` (sharding over a
+multi-GPU topology) must raise.
 """
 
 import json
@@ -16,6 +20,7 @@ import subprocess
 import sys
 import warnings
 
+import numpy as np
 import pytest
 
 import face_crop_plus_tpu.__main__ as jax_cli
@@ -108,20 +113,82 @@ def test_requires_input_dir():
         cli.parse_args([])
 
 
-@pytest.mark.parametrize(
-    "extra",
-    [
-        ["-l", "lm.txt"],
-        ["-hc", "1"],
-        ["-pu", "1"],
-        ["-pf", "1"],
-        ["-si", "auto"],
-    ],
-)
+@pytest.mark.parametrize("extra", [["-si", "auto"]])
 def test_unported_flags_raise(clean_env, tmp_path, extra):
     with pytest.raises(NotImplementedError):
         cli.main(["-i", str(tmp_path), "-d", "cpu", *extra])
     assert os.listdir(tmp_path) == []
+
+
+def _landmarks_for(src: str) -> str:
+    """A whitespace landmarks file for the readable files of ``src``, two
+    rows for a00.jpg and none for a01.jpg."""
+    from face_crop_plus_tpu_torch.utils.io import read_images
+
+    images, names = read_images(sorted(os.listdir(src)), src)
+    rows = []
+    for name, im in zip(names, images):
+        h, w = im.shape[:2]
+        pts = [0.36 * w, 0.42 * h, 0.64 * w, 0.42 * h, 0.5 * w, 0.56 * h, 0.38 * w, 0.74 * h,
+               0.62 * w, 0.74 * h]
+        for shift in ((0, 3) if name == "a00.jpg" else () if name == "a01.jpg" else (0,)):
+            rows.append(name + " " + " ".join(f"{v + shift:.3f}" for v in pts))
+    path = os.path.join(os.path.dirname(src), "lm.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for in-process CLI runs, which share the
+    machine's cores with the suite's other workers."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("extra", [["-l"], ["-hc", "1"], ["-pu", "1"], ["-pf", "1"]])
+def test_host_path_flags_match_jax(clean_env, one_torch_thread, tmp_path, monkeypatch, extra):
+    """Flags once refused reach the host path and write the JAX CLI's tree."""
+    from face_crop_plus_tpu_torch.utils import native_io
+
+    if not native_io.native_warp_available():
+        pytest.skip("the native host library did not build")
+    src, wdir = str(tmp_path / "in"), str(tmp_path / "w")
+    write_mixed_dir(src)
+    write_tamed_npz(wdir)
+    if extra == ["-l"]:
+        extra = ["-l", _landmarks_for(src), "-st", "all"]
+    fmt = "jpg" if extra[0] in ("-l", "-pf") else "png"
+    if extra[0] == "-pf":
+        monkeypatch.setenv("FCPT_NATIVE_WARP", "0")
+    argv = ["-i", src, "-r", "64", "-s", "64", "-dt", "0", "-b", "4", "-f", fmt, "-w", wdir,
+            "-d", "cpu", *extra]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jax_cli.main(argv + ["-o", str(tmp_path / "jax")])
+        cli.main(argv + ["-o", str(tmp_path / "port")])
+    ref, ours = read_tree(str(tmp_path / "jax")), read_tree(str(tmp_path / "port"))
+    assert len(ours) >= 10
+    if extra[0] == "-l":
+        for name in ours:
+            with open(tmp_path / "jax" / name, "rb") as a, open(tmp_path / "port" / name,
+                                                                 "rb") as b:
+                assert a.read() == b.read(), name
+        assert "a00_1.jpg" in ours and not any(k.startswith("a01") for k in ours)
+        return
+    if extra[0] != "-pf":
+        assert tree_max_diff(ours, ref) <= 1
+        return
+    # JPEG files of rows within ±1: a re-encode may move a coefficient a
+    # quantization step, so a few pixels differ by more.
+    assert sorted(ours) == sorted(ref)
+    diffs = [np.abs(ours[k].astype(np.int16) - ref[k]) for k in ours]
+    assert max(float(d.mean()) for d in diffs) < 0.5 and max(int(d.max()) for d in diffs) <= 8
 
 
 @pytest.mark.parametrize(

@@ -63,16 +63,29 @@ def test_default_device_raises_without_cuda():
         face_crop_plus_tpu_torch.Cropper()
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(landmarks="lm.txt"),
-        dict(mesh=object()),
-    ],
-)
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="meshes"):
         face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
+
+
+def test_landmarks_argument_matches_jax(tmp_path):
+    """``landmarks=``: a file is parsed at construction, the detector is
+    suppressed whatever ``det_threshold`` says, and ``crop_align`` gives
+    the JAX package's crops."""
+    import face_crop_plus_tpu
+
+    path = tmp_path / "lm.txt"
+    path.write_text("a.jpg 20 25 40 25 30 35 22 45 38 45\nb.jpg 10 12 20 12 15 18 11 22 19 22\n")
+    t = face_crop_plus_tpu_torch.Cropper(device="cpu", landmarks=str(path), output_size=32)
+    j = face_crop_plus_tpu.Cropper(device="cpu", landmarks=str(path), output_size=32)
+    assert t.det_model is None and t._fused is None and j.det_model is None
+    np.testing.assert_array_equal(t.landmarks[0], j.landmarks[0])
+    np.testing.assert_array_equal(t.landmarks[1], j.landmarks[1])
+    batch = np.random.default_rng(1).integers(0, 256, (2, 60, 50, 3), dtype=np.uint8)
+    crops = t.crop_align(batch, None, [0, 1], t.landmarks[0])
+    np.testing.assert_array_equal(crops, j.crop_align(batch, None, [0, 1], j.landmarks[0]))
+    assert crops.shape == (2, 32, 32, 3)
 
 
 @pytest.mark.parametrize(
@@ -132,10 +145,26 @@ def test_ported_paths_run(monkeypatch, tmp_path, kw):
 
 
 @pytest.mark.parametrize("var", ["FCPT_HOST_CROP", "FCPT_PACK_UPLOAD", "FCPT_PACK_FETCH"])
-def test_unported_env_switches_raise(monkeypatch, var):
+def test_env_switches_match_jax(monkeypatch, var):
+    """Switches once refused: each forced on gives the JAX package's gates
+    and ``process_images`` within ±1 of it (the host-crop mode warps on
+    the host; the packed wire is the directory pipeline's, see
+    ``tests/test_torch_host_crop.py``)."""
+    for other in ("FCPT_HOST_CROP", "FCPT_PACK_UPLOAD", "FCPT_PACK_FETCH"):
+        monkeypatch.delenv(other, raising=False)
     monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match=var):
-        face_crop_plus_tpu_torch.Cropper(device="cpu")
+    j, t = cropper_pair(output_size=64, resize_size=64, det_threshold=-1.0, batch_size=4)
+    names = ["a.jpg", "b.jpg"]
+    assert t._host_crop_enabled() == j._host_crop_enabled()
+    assert t._packed_upload_eligible() == j._packed_upload_eligible()
+    assert t._packed_fetch_eligible(names) == j._packed_fetch_eligible(names)
+    batch = np.random.default_rng(2).integers(0, 256, (4, 72, 60, 3), dtype=np.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = j.process_images(batch)
+        ours = t.process_images(batch)
+    np.testing.assert_array_equal(ours[1], ref[1])
+    assert np.abs(ours[0].astype(np.int16) - ref[0]).max() <= 1
 
 
 def _images_parity(monkeypatch, images, **kw):

@@ -139,8 +139,8 @@ def test_device_handoff_and_host_crops_give_same_groups(uniform_src, tmp_path, m
     n_faces = len([k for k in handed if os.path.dirname(k) in ("p3/face", "no3/face")])
     assert len(seen[0]) == n_faces == 3 * (1 if strategy == "largest" else 3)
     real_fused = t._fused_process
-    monkeypatch.setattr(t, "_fused_process", lambda b, return_device_crops=False: (
-        (*real_fused(b), None) if return_device_crops else real_fused(b)))
+    monkeypatch.setattr(t, "_fused_process", lambda b, return_device_crops=False, **kw: (
+        (*real_fused(b, **kw), None) if return_device_crops else real_fused(b, **kw)))
     seen.clear()
     host = _run(t, uniform_src, str(tmp_path / "host"))
     assert len(seen) == 1 and isinstance(seen[0], np.ndarray)

@@ -413,10 +413,29 @@ def test_mean_std_overridable_after_construction(small_parse, parsers):
     assert (labels != ref_labels).mean() < 1e-3
 
 
-def test_packed_sources_raise(parsers):
-    _, t = parsers
-    with pytest.raises(NotImplementedError, match="4:2:0"):
-        t.predict(np.zeros((1, 12), np.uint8), src_hw=(4, 2))
+def test_packed_sources_match_jax(small_parse, parsers):
+    """``src_hw``: packed 4:2:0 rows are reconstructed on the device, so
+    the labels, counts and groups equal those of the reconstruction, and
+    the JAX parser's on the same rows except at near-ties."""
+    from face_crop_plus_tpu_torch.ops.yuv import rgb_to_yuv420_np, yuv420_to_rgb_np
+
+    j, t = parsers
+    rows = rgb_to_yuv420_np(_faces(3, 24, 26, seed=13))
+    recon = yuv420_to_rgb_np(rows, 24, 26)
+    labels, counts = t.parse_batch(rows, src_hw=(24, 26))
+    ref_labels, ref_counts = t.parse_batch(recon)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(counts, ref_counts)
+    assert labels.shape == (3, 24, 26)
+    np.testing.assert_array_equal(t.parse_counts(rows, src_hw=(24, 26)), counts)
+    groups = t.predict(rows, src_hw=(24, 26))
+    ref_groups = t.predict(recon)
+    assert groups[0] == ref_groups[0] and groups[1].keys() == ref_groups[1].keys()
+    for k, (inds, masks) in ref_groups[1].items():
+        assert groups[1][k][0] == inds and groups[1][k][1].shape[1:] == (24, 26)
+        np.testing.assert_array_equal(groups[1][k][1], masks)
+    jax_labels, _ = j.parse_batch(rows, src_hw=(24, 26))
+    assert (labels != np.asarray(jax_labels)).mean() < 1e-3
 
 
 def test_parse_runs_in_f32(small_parse, parsers, monkeypatch):
