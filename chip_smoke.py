@@ -140,8 +140,38 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    "all" with ``pack_crops``: rows bitwise equal to the numpy packing of
    the RGB crops, the ``to_host`` stage and its bytes beside the RGB
    fetch.  The phase's wall time.
-4. The ``kernels`` JSON line (phase 5's, 6's, 7's and 8's launches beside
-   the others), the card line, and the ``ok`` line last.
+9. Serving and sharding.  (a) Phase 3's configuration (random-init
+   detector, "largest", 16×218×178 batches) through
+   ``process_images_stream`` at depths 1, 2 and 3 beside a per-call
+   ``process_images`` loop, 24 seeded requests each after one warm-up:
+   every yield bitwise equal to the loop's, faces/s and request latency
+   p50/p99 (from the generator pulling a batch to yielding its result),
+   K1 and the warp launched once per request; the host time to return
+   from one dispatch (``FusedPipeline.process_async``) on an idle card, and
+   of its upload during the depth-2 stream, each under a tenth of the
+   network's ms (uploads go through pinned memory without waiting); the
+   whole dispatch's host time in the stream beside a probe of the CUDA
+   launch queue (how many launches the host enqueues behind a busy card
+   before one blocks); 8 requests profiled at depth 2 beside 8 per-call
+   ones: the device's busy share and its longest idle gaps.  (c) A mixed
+   stream (uniform, uniform, ragged in three shapes, empty, uniform):
+   order kept, results equal to per-call; strategy "all" (max_faces 64,
+   auto_grow off) through the stream, serialized, equal to per-call.
+   (b) ``FCPT_HOST_CROP=1`` with the tamed detector on smooth batches:
+   the stream at depth 2 equal to per-call; with ``pack_upload`` indices
+   equal to the RGB stream and mean pixel difference < 4 (the JAX
+   package's band); the gate states (no native warp on the card's
+   machine: the warp kernel crops, after a second upload).  (d) Phase 6's
+   BiSeNet configuration, 8 requests at depth 2: crops and groups equal to
+   per-call.  (e) ``python -m face_crop_plus_tpu_torch -si auto`` as two
+   processes (``RANK`` 0/1, ``WORLD_SIZE`` 2, ``LOCAL_RANK`` 0) on the one
+   card over the uniform 218×178 JPEGs of phase 5's directory, PNG (a
+   shard's batches hold other files than one process's, and a ragged
+   file's path hangs on its batch): the two name sets partition a
+   one-process run's, pixels within ±1 (files differing counted), the
+   pair's wall time beside one process's.  The phase's wall time.
+4. The ``kernels`` JSON line (phase 5's to 9's launches beside the
+   others), the card line, and the ``ok`` line last.
 
 Phases 3-7 run with ``FCPT_HOST_CROP=0``: they hold the device path,
 which "auto" gives on a card, in the CPU rehearsal too.
@@ -158,6 +188,7 @@ import contextlib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -237,6 +268,21 @@ def device_kernels(fn, reps: int) -> list[tuple[str, float, int]]:
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def release_cached(device: torch.device) -> str:
+    """Releases this process's cached device memory to the card before a
+    subprocess shares the card (the caching allocator keeps what earlier
+    phases freed), and says how much there was."""
+    if device.type != "cuda":
+        return "no card"
+    import gc
+
+    gc.collect()
+    held = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    return (f"this process's cached device memory {held} B before the subprocess, "
+            f"{torch.cuda.memory_reserved()} B after releasing it")
 
 
 class StageTimer:
@@ -1059,6 +1105,7 @@ def phase5_directory(device, card, rehearse):
            "-r", str(resize), "-s", str(out), "-dt", "0", "-b", str(bs), "-w", wdir]
     if rehearse:
         cmd += ["-d", "cpu"]
+    log(f"  (a) {release_cached(device)}")
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -1516,6 +1563,7 @@ def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
            "-mg", json.dumps(MASK_GROUPS)]
     if rehearse:
         cmd += ["-d", "cpu"]
+    log(f"  (d) {release_cached(device)}")
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     sec = time.perf_counter() - t0
@@ -1896,6 +1944,7 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
     code = ("import runpy, sys, torch; sys.argv = ['face_crop_plus_tpu_torch'] + sys.argv[1:]; "
             "runpy.run_module('face_crop_plus_tpu_torch', run_name='__main__'); "
             "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)")
+    log(f"  (e) {release_cached(device)}")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT, capture_output=True,
                           text=True, timeout=900)
@@ -2321,6 +2370,383 @@ def phase8_host_path(batches, p3_fps, p5, device, card, rehearse):
     return dict(launches=launches, fps=rates, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: serving and sharding
+# ---------------------------------------------------------------------------
+
+
+def device_activity(fn):
+    """Runs ``fn`` under the profiler: (busy µs, window µs, wall µs, the
+    longest idle gaps µs, activities) of the card's activity (kernels,
+    copies, sets; overlapping spans merged) from its first start to its
+    last end; None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None
+    merged = [list(spans[0])]
+    for s, e in spans[1:]:
+        if s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    busy = sum(e - s for s, e in merged)
+    gaps = sorted((b[0] - a[1] for a, b in zip(merged, merged[1:])), reverse=True)
+    return busy, merged[-1][1] - merged[0][0], wall_us, gaps[:3], len(spans)
+
+
+def launch_queue_depth(device) -> tuple[int, float]:
+    """How many kernel launches the host enqueues behind a busy card before
+    one blocks: ~0.3 s of f32 matmuls queued, then one-element adds timed
+    one by one until a launch takes over 2 ms.  Returns (adds enqueued
+    before it, its host ms), or (-1, 0.0) when none of 16,384 blocked."""
+    a = torch.randn(8192, 8192, device=device)
+    x = torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    for _ in range(15):
+        a @ a
+    found = (-1, 0.0)
+    for i in range(16384):
+        t0 = time.perf_counter()
+        x.add_(1)
+        ms = (time.perf_counter() - t0) * 1e3
+        if ms > 2.0:
+            found = (i, ms)
+            break
+    torch.cuda.synchronize()
+    return found
+
+
+def same_result(a, b) -> bool:
+    """Two ``process_images`` tuples bitwise equal, groups included."""
+    (ca, ia, (attr_a, mask_a)), (cb, ib, (attr_b, mask_b)) = a, b
+    if not (np.array_equal(ca, cb) and np.array_equal(ia, ib) and attr_a == attr_b):
+        return False
+    if (mask_a is None) != (mask_b is None):
+        return False
+    return mask_a is None or (set(mask_a) == set(mask_b) and all(
+        mask_a[k][0] == mask_b[k][0] and np.array_equal(mask_a[k][1], mask_b[k][1])
+        for k in mask_a))
+
+
+def serve(cropper, reqs, depth=None, **kw):
+    """``reqs`` through ``process_images_stream`` at ``depth``, or through a
+    per-call ``process_images`` loop (``depth`` None): (results, request
+    latencies s, wall s, (K1, warp) launches).  A stream request's latency
+    runs from the generator pulling its batch to yielding its result."""
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+
+    results, lat, pulled = [], [], []
+
+    def source():
+        for b in reqs:
+            pulled.append(time.perf_counter())
+            yield b
+
+    nms_kern.launches = 0
+    warp_kern.launches = 0
+    t0 = time.perf_counter()
+    if depth is None:
+        for b in reqs:
+            t1 = time.perf_counter()
+            results.append(cropper.process_images(b))
+            lat.append(time.perf_counter() - t1)
+    else:
+        for k, r in enumerate(cropper.process_images_stream(source(), depth=depth, **kw)):
+            lat.append(time.perf_counter() - pulled[k])
+            results.append(r)
+    wall = time.perf_counter() - t0
+    return results, lat, wall, (nms_kern.launches, warp_kern.launches)
+
+
+def rate_line(label, results, lat, wall) -> str:
+    faces = sum(len(r[1]) for r in results)
+    return (f"{label}: {faces / wall:.6f} faces/s ({len(results)} requests, {faces} faces, "
+            f"{wall:.6f} s); request latency p50 {np.percentile(lat, 50) * 1e3:.6f} ms, p99 "
+            f"{np.percentile(lat, 99) * 1e3:.6f} ms")
+
+
+def phase9_serving(batches, p5, device, card, rehearse):
+    """Serving and sharding; see the module docstring.
+
+    Returns each sub-phase's (K1, warp) launches for the kernels line.
+    """
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.utils import native_io
+
+    t_phase = time.perf_counter()
+    os.environ["FCPT_HOST_CROP"] = "0"
+    n, (h, w) = batches[0].shape[0], batches[0].shape[1:3]
+    out, resize = (32, 64) if rehearse else (256, 1024)
+    n_req = 6 if rehearse else 24
+    rng = np.random.default_rng(9)
+    reqs = [rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8) for _ in range(n_req)]
+    launches = {}
+
+    # (a) the card's default: the single-program pass in flight.
+    c = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="largest",
+                det_threshold=-1.0, batch_size=n)
+    c.process_images(reqs[0])  # warm-up: pre_topk grows to its ceiling here
+    timer = StageTimer(device)
+    c._fused.stage_timer = timer
+    c.process_images(reqs[1])
+    c._fused.stage_timer = None
+    network_ms = timer.ms["network"]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = c._fused.process_async(c._pad_group(reqs[2]), c.resize_size)
+    idle_ms = (time.perf_counter() - t0) * 1e3
+    c._fused.process_finish(handle)
+    del handle
+
+    ref, lat, wall, per_call = serve(c, reqs)
+    log(f"  [{card}] (a) {rate_line('per-call process_images', ref, lat, wall)}; (K1, warp) "
+        f"launches {per_call}")
+    rates = {"per_call": sum(len(r[1]) for r in ref) / wall}
+    host_ms = {"process_async": [], "_upload": []}
+
+    def timed(name):
+        real = getattr(c._fused, name)
+
+        def call(*args, **kwargs):
+            t1 = time.perf_counter()
+            result = real(*args, **kwargs)
+            host_ms[name].append((time.perf_counter() - t1) * 1e3)
+            return result
+
+        return call
+
+    stream_launches = [0, 0]
+    for depth in (1, 2, 3):
+        if depth == 2:  # host times of the dispatch and of its upload
+            for name in host_ms:
+                setattr(c._fused, name, timed(name))
+        try:
+            got, lat, wall, counts = serve(c, reqs, depth)
+        finally:
+            for name in host_ms:
+                c._fused.__dict__.pop(name, None)
+        same = [same_result(a, b) for a, b in zip(got, ref)]
+        rates[f"depth_{depth}"] = sum(len(r[1]) for r in got) / wall
+        log(f"  [{card}] (a) {rate_line(f'stream depth {depth}', got, lat, wall)}; (K1, warp) "
+            f"launches {counts}; every yield bitwise equal to the per-call loop's "
+            f"{all(same) and len(got) == len(ref)}")
+        if not all(same) or len(got) != len(ref):
+            raise SystemExit(f"FAIL: stream depth {depth} differs from process_images "
+                             f"(requests {[k for k, s in enumerate(same) if not s]})")
+        if not rehearse and counts != (n_req, n_req):
+            raise SystemExit(f"FAIL: stream depth {depth}: (K1, warp) launches {counts}, "
+                             f"expected one each per request ({n_req})")
+        stream_launches = [a + b for a, b in zip(stream_launches, counts)]
+    launches["serving_stream"] = tuple(stream_launches)
+    med = {k: float(np.median(v)) for k, v in host_ms.items()}
+    top = {k: float(np.max(v)) for k, v in host_ms.items()}
+    log(f"  [{card}] (a) host time to return from one dispatch (process_async: upload, "
+        f"detect, fit, warp and host copies enqueued): {idle_ms:.6f} ms on an idle card "
+        f"({idle_ms / network_ms:.6f} of the network's {network_ms:.6f} ms, stage timer, one "
+        f"request); during the depth-2 stream, {len(host_ms['process_async'])} dispatches: "
+        f"the upload (_upload) median {med['_upload']:.6f} ms, max {top['_upload']:.6f} ms; "
+        f"the whole dispatch median {med['process_async']:.6f} ms, max "
+        f"{top['process_async']:.6f} ms")
+    if not rehearse:
+        queued, blocked_ms = launch_queue_depth(device)
+        log(f"  [{card}] (a) launch queue: behind a busy card the host enqueued {queued} "
+            f"one-element adds before a launch blocked it ({blocked_ms:.6f} ms); with batches "
+            f"in flight a dispatch returns when the queue has room for its launches")
+    if not rehearse and max(idle_ms, med["_upload"]) >= network_ms / 10:
+        raise SystemExit("FAIL: a dispatch or its upload blocks: a tenth of the network's "
+                         "time or more")
+    if device.type == "cuda":
+        k = 4 if rehearse else 8
+        for label, fn in (("stream depth 2", lambda: list(c.process_images_stream(reqs[:k]))),
+                          ("per-call", lambda: [c.process_images(b) for b in reqs[:k]])):
+            act = device_activity(fn)
+            if act is None:
+                log(f"  (a) profiled {label}: the profiler saw no device activity")
+                continue
+            busy, window, wall_us, gaps, n_act = act
+            log(f"  [{card}] (a) profiled {label}, {k} requests: device busy {busy:.3f} us of "
+                f"a {window:.3f} us window (busy share {busy / window:.6f}; of the "
+                f"{wall_us:.3f} us wall with the profiler on {busy / wall_us:.6f}); longest "
+                f"idle gaps " + ", ".join(f"{g:.3f} us" for g in gaps)
+                + f"; {n_act} device activities (kernels, copies, sets)")
+
+    # (c) a mixed stream: uniform, ragged (three shapes: one staged detect),
+    # empty, uniform; then strategy "all" (serialized).
+    ragged = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+              for hw in ((h, w), (h + 40, w - 20), (w, h))]
+    mixed = [reqs[0], reqs[1], ragged, [], reqs[2]]
+    ref_m, _, _, _ = serve(c, mixed)
+    got_m, _, wall, counts = serve(c, mixed, 2)
+    same = [same_result(a, b) for a, b in zip(got_m, ref_m)]
+    log(f"  (c) mixed stream (uniform, uniform, ragged {[im.shape for im in ragged]}, empty, "
+        f"uniform) at depth 2: faces per request {[len(r[1]) for r in got_m]}, equal to "
+        f"per-call {same}; (K1, warp) launches {counts}")
+    if not all(same) or len(got_m) != len(mixed):
+        raise SystemExit("FAIL: a mixed stream differs from per-call process_images")
+    launches["serving_mixed"] = counts
+    del c
+    ca = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="all",
+                 det_threshold=-1.0, batch_size=n, auto_grow=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the binding caps warn once
+        ref_a, _, _, _ = serve(ca, reqs[:2])
+        got_a, _, wall, counts = serve(ca, reqs[:2], 2)
+    same = [same_result(a, b) for a, b in zip(got_a, ref_a)]
+    log(f"  [{card}] (c) strategy 'all' (max_faces 64, auto_grow off) through the stream, "
+        f"serialized: {[len(r[1]) for r in got_a]} crops, equal to per-call {same}; "
+        f"{sum(len(r[1]) for r in got_a) / wall:.6f} faces/s; (K1, warp) launches {counts}")
+    if not all(same):
+        raise SystemExit("FAIL: strategy 'all' through the stream differs from per-call")
+    launches["serving_all"] = counts
+    del ca, ref_a, got_a
+
+    # (b) the host-crop mode (FCPT_HOST_CROP=1) at depth 2, with the tamed
+    # detector on smooth images, with and without packed uploads.
+    ch = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="largest",
+                 det_threshold=-1.0, batch_size=n)
+    ch.det_model.net.load_state_dict(tamed_state_dict(ch.det_model.net))
+    smooth = [smooth_batch(rng, (n, h, w, 3), cell=24) for _ in range(4 if rehearse else 8)]
+    os.environ["FCPT_HOST_CROP"] = "1"
+    try:
+        gates = {"host_crop": ch._host_crop_enabled(),
+                 "native_warp": native_io.native_warp_available(ch.padding),
+                 "native_yuv": native_io.yuv_encoder_available()}
+        ch.process_images(smooth[0])  # warm-up
+        real_detect, packed_dispatches = ch._fused.detect_only_async, []
+        ch._fused.detect_only_async = lambda *a, **k: (
+            packed_dispatches.append(k.get("packed_hw") is not None) or real_detect(*a, **k))
+        with PathCounter() as paths:
+            ref_h, lat, wall, _ = serve(ch, smooth)
+            log(f"  [{card}] (b) FCPT_HOST_CROP=1, gates {gates}: "
+                f"{rate_line('per-call', ref_h, lat, wall)}")
+            got_h, lat, wall, counts = serve(ch, smooth, 2)
+            log(f"  [{card}] (b) {rate_line('stream depth 2', got_h, lat, wall)}; (K1, warp) "
+                f"launches {counts}")
+            packed, lat, wall, counts_p = serve(ch, smooth, 2, pack_upload=True)
+            log(f"  [{card}] (b) {rate_line('stream depth 2, pack_upload', packed, lat, wall)}; "
+                f"(K1, warp) launches {counts_p}")
+    finally:
+        os.environ["FCPT_HOST_CROP"] = "0"
+        ch._fused.__dict__.pop("detect_only_async", None)
+    same = [same_result(a, b) for a, b in zip(got_h, ref_h)]
+    idx_eq = all(np.array_equal(a[1], b[1]) for a, b in zip(packed, got_h))
+    means = [float(np.abs(a[0].astype(np.int16) - b[0].astype(np.int16)).mean())
+             for a, b in zip(packed, got_h)]
+    log(f"  (b) paths: {paths}; stream equal to per-call {same}; packed: indices equal to the "
+        f"RGB stream {idx_eq}, mean pixel |diff| per request "
+        + ", ".join(f"{m:.6f}" for m in means) + f" (limit 4); packed dispatches "
+        f"{sum(packed_dispatches)} of {len(packed_dispatches)}; packed groups in the shape "
+        f"budget {sorted(k for k in ch._fused_shapes if k[0] == 'yuv420')}")
+    if (not all(same) or not idx_eq or max(means) >= 4.0
+            or sum(packed_dispatches) != len(smooth)):
+        raise SystemExit("FAIL: the host-crop stream differs from per-call or the packed band")
+    if not rehearse and min(counts + counts_p) < len(smooth):
+        raise SystemExit("FAIL: K1 or the warp did not launch on every host-crop request")
+    launches["serving_host_crop"] = (counts[0] + counts_p[0], counts[1] + counts_p[1])
+    del ch, ref_h, got_h, packed
+
+    # (d) parsing at collect time: phase 6's BiSeNet configuration.
+    cp = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="largest",
+                 det_threshold=-1.0, batch_size=n, attr_groups=ATTR_GROUPS,
+                 mask_groups=MASK_GROUPS)
+    cp.par_model.net.load_state_dict(tamed_parser_state_dict(cp.par_model.net))
+    cp.par_model.attr_join_by_and = False
+    cp.process_images(reqs[0])  # warm-up
+    k = 4 if rehearse else 8
+    ref_p, lat, wall, _ = serve(cp, reqs[:k])
+    log(f"  [{card}] (d) with BiSeNet: {rate_line('per-call', ref_p, lat, wall)}")
+    got_p, lat, wall, counts = serve(cp, reqs[:k], 2)
+    same = [same_result(a, b) for a, b in zip(got_p, ref_p)]
+    sizes = {g: len(v) for g, v in got_p[0][2][0].items()}
+    log(f"  [{card}] (d) {rate_line('stream depth 2', got_p, lat, wall)}; (K1, warp) launches "
+        f"{counts}; crops and groups equal to per-call {same}; first request's attribute "
+        f"groups {sizes}")
+    if not all(same) or not got_p[0][2][1]:
+        raise SystemExit("FAIL: parsing at collect differs from per-call process_images")
+    launches["serving_parse"] = counts
+    del cp, ref_p, got_p
+
+    # (e) two processes on the one card, -si auto, over the uniform files of
+    # phase 5's directory.  With the ragged files a file's path would hang
+    # on the rest of its batch (a shape takes the fused path only with
+    # enough images in the batch, the staged detect pads to the count it
+    # holds), and a shard's batches hold other files than one process's.
+    kw, work = p5["kw"], os.path.join(p5["work"], "sharded")
+    src = link_subset(p5["src"], os.path.join(work, "in"),
+                      [f for f in p5["readable"] if "_" not in f[4:]])
+    cmd = [sys.executable, "-m", "face_crop_plus_tpu_torch", "-i", src,
+           "-r", str(kw["resize_size"]), "-s", str(kw["output_size"]), "-dt", "0",
+           "-b", str(kw["batch_size"]), "-w", p5["wdir"], "-f", "png"]
+    if rehearse:
+        cmd += ["-d", "cpu"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    log(f"  (e) {release_cached(device)}")
+    t0 = time.perf_counter()
+    one = subprocess.run(cmd + ["-o", os.path.join(work, "one")], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    one_s = time.perf_counter() - t0
+    if one.returncode != 0:
+        raise SystemExit(f"FAIL: the one-process CLI exited {one.returncode}:\n"
+                         f"{one.stderr[-3000:]}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2", LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["-o", os.path.join(work, f"rank{r}"), "-si", "auto"],
+                              cwd=ROOT, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pair_s = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"FAIL: the -si auto CLI of rank {r} exited {p.returncode}:\n"
+                             f"{err[-3000:]}")
+    names = [sorted(os.listdir(os.path.join(work, f"rank{r}"))) for r in range(2)]
+    all_names = sorted(os.listdir(os.path.join(work, "one")))
+    partition = (sorted(names[0] + names[1]) == all_names and not set(names[0]) & set(names[1])
+                 and all(names))
+    differing, level = 0, 0
+    if partition:
+        for r in range(2):
+            for name in names[r]:
+                d = level_diff(read_rgb(os.path.join(work, f"rank{r}"), name),
+                               read_rgb(os.path.join(work, "one"), name))[0]
+                differing += int(d > 0)
+                level = max(level, d)
+    log(f"  [{card}] (e) -si auto, two processes (RANK 0/1, WORLD_SIZE 2, LOCAL_RANK 0) on the "
+        f"one card over phase 5's {len(os.listdir(src))} uniform files: {len(names[0])} + "
+        f"{len(names[1])} crops "
+        f"partition the one-process tree's {len(all_names)} {partition}; files differing "
+        f"{differing}, max pixel |diff| {level} (limit 1); pair wall {pair_s:.6f} s beside one "
+        f"process {one_s:.6f} s (process start, build, model init, one pass each)")
+    if not partition or level > 1:
+        raise SystemExit("FAIL: the -si auto processes do not partition the one-process tree")
+
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 9 wall time {wall:.3f} s")
+    return dict(launches=launches, fps=rates, wall=wall)
+
+
 def read_rgb(root, name):
     from face_crop_plus_tpu_torch.utils.io import imread_rgb
 
@@ -2338,7 +2764,7 @@ def _rows(timings: dict) -> dict:
             for (label, key), t in timings.items()}
 
 
-def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8) -> dict:
+def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, p9) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -2355,7 +2781,8 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8) 
         "replaces": "tools/mosaic_gather_probe.py:40",
         "redesigned": "PR 3",
         "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"]
-        + p7["warp"] + p7["dir_warp"] + sum(v[1] for v in p8["launches"].values()),
+        + p7["warp"] + p7["dir_warp"] + sum(v[1] for v in p8["launches"].values())
+        + sum(v[1] for v in p9["launches"].values()),
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
@@ -2365,6 +2792,7 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8) 
         "launches_enhance": p7["warp"],
         "launches_enhance_directory": p7["dir_warp"],
         **{f"launches_{k}": v[1] for k, v in p8["launches"].items()},
+        **{f"launches_{k}": v[1] for k, v in p9["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -2591,6 +3019,12 @@ def main() -> int:
     log("phase 8: the host path: the landmark-file mode (process_dir, border modes, with "
         "BiSeNet, with RRDBNet), the forced host-crop mode, the packed 4:2:0 wire's device half")
     p8 = phase8_host_path(batches, fps, p5, device, card, rehearse)
+
+    # -- phase 9 -----------------------------------------------------------
+    log("phase 9: serving and sharding: process_images_stream at depths 1-3 (the default "
+        "path, the host-crop mode with and without packed uploads, a mixed stream, parsing at "
+        "collect), two -si auto processes on the one card")
+    p9 = phase9_serving(batches, p5, device, card, rehearse)
     shutil.rmtree(p5["work"], ignore_errors=True)
 
     # -- phase 4 -----------------------------------------------------------
@@ -2603,7 +3037,8 @@ def main() -> int:
         "replaces": "face_crop_plus_tpu/ops/pallas/nms_kernel.py:28",
         "redesigned": "PR 3",
         "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"]
-        + p7["nms"] + p7["dir_nms"] + sum(v[0] for v in p8["launches"].values()),
+        + p7["nms"] + p7["dir_nms"] + sum(v[0] for v in p8["launches"].values())
+        + sum(v[0] for v in p9["launches"].values()),
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
@@ -2613,6 +3048,7 @@ def main() -> int:
         "launches_enhance": p7["nms"],
         "launches_enhance_directory": p7["dir_nms"],
         **{f"launches_{k}": v[0] for k, v in p8["launches"].items()},
+        **{f"launches_{k}": v[0] for k, v in p9["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -2631,7 +3067,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5, p6, p7, p8),
+               all_warp, p5, p6, p7, p8, p9),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

@@ -15,8 +15,12 @@ it (every image in the landmark-free mode); a negative value switches it
 off.  ``-hc``, ``-pu`` and ``-pf`` set ``FCPT_HOST_CROP``,
 ``FCPT_PACK_UPLOAD`` and ``FCPT_PACK_FETCH`` (the host-crop mode and the
 packed 4:2:0 wire; each needs the native host library, which builds only
-where libjpeg is installed).  ``-si auto`` (multi-GPU sharding) raises
-here.
+where libjpeg is installed).  ``-si auto`` shards the directory over
+one process per GPU: it joins the process group a launcher configured
+(``torchrun``, or ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``
+set by hand; :mod:`.parallel`), takes the group's rank and size as the
+shard, and with ``-d auto`` runs on ``cuda:{LOCAL_RANK}``.  Meshes (one
+process driving several cards) are not ported.
 """
 
 from __future__ import annotations
@@ -103,8 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Directory with converted model weights (.npz or the "
                         "reference .pth files).")
     p.add_argument("-si", "--shard-index", type=str, default=None,
-                   help="File sharding: this process's shard index (int); "
-                        "'auto' (from a process topology) is not ported yet.")
+                   help="File sharding: this process's shard index (int), or "
+                        "'auto': the rank and size of the process group a "
+                        "launcher configured (torchrun, or MASTER_ADDR, "
+                        "MASTER_PORT, RANK, WORLD_SIZE), one process per GPU "
+                        "on cuda:LOCAL_RANK unless -d says otherwise.")
     p.add_argument("-ns", "--num-shards", type=int, default=None,
                    help="File sharding: total number of shards (each process "
                         "handles files[shard_index::num_shards]).")
@@ -178,11 +185,14 @@ def parse_args(argv: list[str] | None = None) -> dict[str, Any]:
             os.environ[env] = val
 
     if kwargs.get("shard_index") == "auto":
-        raise NotImplementedError(
-            "-si auto (shards from a multi-GPU process topology) is not ported "
-            "yet: pass -si <index> -ns <count>"
-        )
-    if kwargs.get("shard_index") is not None:
+        from .parallel import host_shard, init_distributed
+
+        init_distributed()
+        kwargs["shard_index"], kwargs["num_shards"] = host_shard()
+        # One process per GPU: each takes the card its launcher gave it.
+        if kwargs["device"] == "auto":
+            kwargs["device"] = f"cuda:{int(os.environ.get('LOCAL_RANK') or 0)}"
+    elif kwargs.get("shard_index") is not None:
         kwargs["shard_index"] = int(kwargs["shard_index"])
     return kwargs
 

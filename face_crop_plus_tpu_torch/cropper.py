@@ -3,7 +3,8 @@
 Counterpart of ``face_crop_plus_tpu.cropper.Cropper`` with the same
 constructor surface.  Ported: the detection configuration with strategies
 "best"/"largest"/"all" and ``crop_source`` "original"/"interim", through
-the in-memory serving entry point :meth:`Cropper.process_images` and the
+the in-memory serving entry points :meth:`Cropper.process_images` and
+:meth:`Cropper.process_images_stream` (batches in flight) and the
 directory pipeline :meth:`Cropper.process_dir` (read → detect and crop →
 parse → save, the JAX package's tree), which the CLI
 (``python -m face_crop_plus_tpu_torch``) drives; the landmark-file mode
@@ -79,7 +80,7 @@ from __future__ import annotations
 
 import os
 import threading
-from collections import defaultdict
+from collections import defaultdict, deque
 from functools import partial
 from multiprocessing.pool import ThreadPool
 
@@ -886,6 +887,127 @@ class Cropper:
                 crops, _lm, indices = self._fused_process(np.stack(images))
         else:
             crops, indices = self._detect_crop_staged(images)
+        groups = self._parse(crops) if len(crops) else (None, None)
+        return crops, indices, groups
+
+    def process_images_stream(self, batches, depth: int = 2, pack_upload: bool | None = None):
+        """Pipelined serving: request batches in, one ``(crops, indices,
+        groups)`` tuple out per batch, in order.
+
+        Counterpart of the JAX ``process_images_stream``
+        (``cropper.py:1528-1638``).  :meth:`process_images` must wait for
+        its own results, so back-to-back calls serialize the upload, the
+        device's work and the host's.  This generator keeps up to ``depth``
+        batches in flight: batch k+1 is uploaded and its device work
+        enqueued before batch k's results are collected, so the card
+        starts on the next batch while the host finishes the last one.
+
+        Two modes keep batches in flight, each padded to ``batch_size`` as
+        :meth:`process_images` pads them:
+
+        * the host-crop mode (:meth:`_host_crop_enabled`), as in the JAX
+          package: the detect-only pass in flight, fits and warps at
+          collect time, any strategy;
+        * otherwise (a card's default), strategies "best"/"largest": the
+          whole detect→fit→warp pass in flight
+          (:meth:`.pipeline.FusedPipeline.process_async`).  The JAX stream
+          pipelines only the host-crop mode; on a card the port's "auto"
+          keeps that mode off, so the port pipelines the path its
+          :meth:`process_images` runs there.
+
+        An empty, ragged or ineligible batch, strategy "all" outside the
+        host-crop mode, and every batch of a configuration with an enhancer
+        first drain the queue and then run as :meth:`process_images`.  Each
+        result equals :meth:`process_images` of the same batch (also when
+        a batch grows the detector's caps while later batches are in
+        flight: their collect re-runs them with the grown caps), except
+        under ``pack_upload``.  Parsing runs at collect time.  The device
+        lock is held around each dispatch and each collect, never across a
+        ``yield``.
+
+        Args:
+            batches: Iterable of uniform (N, H, W, 3) uint8 batches or
+                lists of RGB arrays (a request stream).
+            depth: Most batches in flight after a collect (at least 1).
+            pack_upload: In the host-crop mode, send the detector's input
+                as packed YCbCr 4:2:0 rows (1.5 B a pixel) when H and W are
+                even; crops still warp from the caller's RGB pixels, and
+                detection sees the 4:2:0 round trip of its input.  No
+                effect in the other mode.  None reads ``FCPT_SERVE_PACK``
+                ("1" on, anything else off).
+
+        Yields:
+            The :meth:`process_images` result tuple for each input batch.
+
+        Raises:
+            ValueError: Without a detector.
+        """
+        if self.det_model is None:
+            raise ValueError(
+                "process_images_stream requires an active detector "
+                "(det_threshold must be set and landmarks must be None)."
+            )
+        depth = max(1, int(depth))
+        if pack_upload is None:
+            pack_upload = os.environ.get("FCPT_SERVE_PACK") == "1"
+        queue: deque = deque()
+        for images in batches:
+            if isinstance(images, np.ndarray):
+                images = list(images)
+            item = self._stream_dispatch(images, pack_upload)
+            if item is None:
+                while queue:
+                    yield self._stream_collect(queue.popleft())
+                yield self.process_images(images)
+                continue
+            queue.append(item)
+            while len(queue) > depth:
+                yield self._stream_collect(queue.popleft())
+        while queue:
+            yield self._stream_collect(queue.popleft())
+
+    def _stream_dispatch(self, images: list, pack_upload: bool):
+        """Puts one stream batch in flight: (batch, host crop?, handle), or
+        None when the batch runs as :meth:`process_images`.
+
+        The shape is granted last (:meth:`_fused_eligible` records it).
+        Packed uploads are keyed ``("yuv420", h, w)``, the key packed
+        groups take in :meth:`_process_detected`.
+        """
+        if not images or len({im.shape for im in images}) > 1 or self.enh_model is not None:
+            return None
+        host_crop = self._host_crop_enabled()
+        if not (host_crop or self._fused.single_program):
+            return None
+        batch = np.stack(images)
+        h, w = batch.shape[1:3]
+        packed = host_crop and pack_upload and h % 2 == 0 and w % 2 == 0
+        if not self._fused_eligible(("yuv420", h, w) if packed else images[0].shape, len(batch)):
+            return None
+        padded = self._pad_group(batch)
+        with self._device_lock:
+            if not host_crop:
+                handle = self._fused.process_async(padded, self.resize_size, valid_n=len(batch))
+            elif packed:
+                handle = self._fused.detect_only_async(rgb_to_yuv420_np(padded), self.resize_size,
+                                                       valid_n=len(batch), packed_hw=(h, w))
+            else:
+                handle = self._fused.detect_only_async(padded, self.resize_size,
+                                                       valid_n=len(batch))
+        return batch, host_crop, handle
+
+    def _stream_collect(self, item) -> tuple:
+        """Finishes one in-flight stream batch: what :meth:`process_images`
+        returns for it (host crops as :meth:`_host_crop_group` makes them)."""
+        batch, host_crop, handle = item
+        if host_crop:
+            with self._device_lock:
+                lm, loc = self._fused.detect_only_finish(handle)
+            crops, indices = (self._align_crop_filtered(batch, None, loc, lm, prefer_native=True)
+                              if len(lm) else self._empty())
+        else:
+            with self._device_lock:
+                crops, _lm, indices = self._fused.process_finish(handle)
         groups = self._parse(crops) if len(crops) else (None, None)
         return crops, indices, groups
 

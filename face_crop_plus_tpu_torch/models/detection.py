@@ -26,7 +26,7 @@ from ..ops.anchors import anchor_grid, num_anchors
 from ..ops.nms import select_faces
 from ..ops.nn import FoldedBatchNorm, conv, leaky_relu, resize_nearest, softmax
 from ..utils.batching import next_pow2
-from ..utils.device import f32_precision, resolve_device
+from ..utils.device import f32_precision, resolve_device, to_device
 from .backbones import ResNet50Features
 from .weights import load_or_init
 
@@ -156,7 +156,7 @@ def retinaface_forward(net: RetinaFaceNet, x: torch.Tensor):
 
 def preprocess(images: torch.Tensor) -> torch.Tensor:
     """RGB (N, H, W, 3) pixels → f32 BGR minus the detector's mean, NHWC."""
-    mean = torch.tensor(_BGR_MEAN, dtype=torch.float32, device=images.device)
+    mean = to_device(_BGR_MEAN, images.device, np.float32)
     return images.float().flip(-1) - mean
 
 
@@ -185,11 +185,11 @@ def decode_detections(loc, ldm, priors, image_size, variances=_VARIANCES):
     xy1 = b_cxy - b_wh / 2.0
     xy2 = xy1 + b_wh
     boxes = torch.cat([xy1, xy2], dim=-1)
-    boxes = boxes * loc.new_tensor([w, h, w, h])
+    boxes = boxes * to_device([w, h, w, h], loc.device, np.float32)
 
     pts = ldm.reshape(*ldm.shape[:-1], 5, 2)
     pts = cxy[:, None, :] + pts * v0 * pwh[:, None, :]
-    pts = pts * loc.new_tensor([w, h])
+    pts = pts * to_device([w, h], loc.device, np.float32)
     return boxes, pts.reshape(*ldm.shape[:-1], 10)
 
 
@@ -259,7 +259,7 @@ class RetinaFace:
         with stage("network"), f32_precision():
             scores2, loc, ldm = retinaface_forward(self.net, preprocess(images))
         with stage("select"):
-            priors = torch.tensor(anchor_grid(h, w), device=images.device)
+            priors = to_device(anchor_grid(h, w), images.device)
             boxes, landms = decode_detections(loc, ldm, priors, (h, w), args["variances"])
             return select_faces(
                 scores2[..., 1].float(),
@@ -342,7 +342,16 @@ class RetinaFace:
         return self.finish_growth(out, caps, args, dispatch, n_anchors, valid_n)
 
     def finish_growth(self, out, caps, args, dispatch, n_anchors: int, valid_n: int):
-        """Completes the growth policy for an already-dispatched detect call."""
+        """Completes the growth policy for an already-dispatched detect call.
+
+        A call dispatched before another one grew the caps (batches in
+        flight) first re-runs with the current caps, as a dispatch made now
+        would: the result is the one a serial caller gets.
+        """
+        current = self._detect_args()
+        if args != current:
+            args = current
+            out, caps = dispatch(args)
         while True:
             caps_np = caps.cpu().numpy() if torch.is_tensor(caps) else np.asarray(caps)
             grown = self.grown_args(caps_np[:valid_n], args, n_anchors)

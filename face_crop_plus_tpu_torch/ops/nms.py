@@ -81,7 +81,7 @@ def top_candidates(
     with K = ``min(pre_topk, A)``; ties keep the lower anchor index first.
     """
     above = scores > vis_threshold
-    s = torch.where(above, scores, scores.new_tensor(float("-inf")))
+    s = scores.masked_fill(~above, float("-inf"))
     k = min(pre_topk, scores.shape[1])  # clamp for tiny inputs
     top_s, top_i = torch.sort(s, dim=1, descending=True, stable=True)
     top_s, top_i = top_s[:, :k], top_i[:, :k]
@@ -142,7 +142,7 @@ def select_faces(
 
     if strategy == "largest":
         area = (b[..., 2] - b[..., 0] + 1.0) * (b[..., 3] - b[..., 1] + 1.0)
-        area = torch.where(keep, area, area.new_tensor(float("-inf")))
+        area = area.masked_fill(~keep, float("-inf"))
         idx = area.argmax(dim=1)  # first NaN wins, as with jnp.argmax
         return _take_rows(lm, idx[:, None]), any_kept[:, None], caps
 

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import to_device
+
 
 def conv(
     in_ch: int,
@@ -134,10 +136,8 @@ def resize_bilinear(
     h, w = x.shape[1], x.shape[2]
     oh, ow = size
     py, px = pad if pad is not None else ((0, 0), (0, 0))
-    my = torch.from_numpy(_linear_resize_matrix(h, oh, align_corners, tuple(py)))
-    mx = torch.from_numpy(_linear_resize_matrix(w, ow, align_corners, tuple(px)))
-    my = my.to(device=x.device, dtype=x.dtype)
-    mx = mx.to(device=x.device, dtype=x.dtype)
+    my = to_device(_linear_resize_matrix(h, oh, align_corners, tuple(py)), x.device).to(x.dtype)
+    mx = to_device(_linear_resize_matrix(w, ow, align_corners, tuple(px)), x.device).to(x.dtype)
     y = torch.einsum("oh,nhwc->nowc", my, x)
     return torch.einsum("pw,nhwc->nhpc", mx, y)
 

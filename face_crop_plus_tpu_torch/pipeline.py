@@ -34,6 +34,13 @@ resident as the batch every path above detects on and crops from.
 Packed fetches (``pack_crops``): the host-bound copy of the crops is
 packed on the device (:func:`.ops.yuv.rgb_to_yuv420`) before it comes
 down; a device handoff stays RGB.  Meshes are not ported.
+
+On the single-program path, :meth:`FusedPipeline.process_async` and
+:meth:`FusedPipeline.process_finish` split a batch into its dispatch and
+its collect (``detect_only_async``/``detect_only_finish`` split the
+detect-only pass), so that a caller keeps batches in flight.  Every host
+→ device copy on a dispatch goes through pinned memory without waiting
+(:func:`.utils.device.to_device`).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from .ops.transform import estimate_affine, estimate_similarity
 from .ops.warp import to_uint8
 from .ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
 from .utils.batching import next_pow2
+from .utils.device import to_device
 
 
 def interim_geometry(
@@ -159,7 +167,7 @@ class FusedPipeline:
 
     def _estimate(self, lm: torch.Tensor):
         estimate = estimate_affine if self.allow_skew else estimate_similarity
-        return estimate(lm, torch.from_numpy(self.target).to(lm.device))
+        return estimate(lm, to_device(self.target, lm.device))
 
     def _interim_window(self, h: int, w: int, interim_h: int, interim_w: int):
         """(scale, (top, left, height, width)) of the un-padded interim."""
@@ -186,8 +194,8 @@ class FusedPipeline:
         with self._stage("select"):
             k = sel.shape[1]
             # Landmarks back to source-image coordinates: un-pad, un-scale.
-            offset = torch.tensor([pad[2], pad[0]], dtype=torch.float32, device=self.device)
-            scale_t = torch.tensor(scale, dtype=torch.float32, device=self.device)
+            offset = to_device([pad[2], pad[0]], self.device, np.float32)
+            scale_t = to_device(scale, self.device, np.float32)
             face_lm = (sel.reshape(n * k, 5, 2) - offset) / scale_t
         return face_lm, valid.reshape(n * k), caps, interim
 
@@ -208,9 +216,9 @@ class FusedPipeline:
             img_idx = img_idx.repeat_interleave(k)
             if self.crop_source == "interim" and (h, w) != (interim_h, interim_w):
                 scale, window = self._interim_window(h, w, interim_h, interim_w)
-                scale_t = torch.tensor(scale, dtype=torch.float32, device=self.device)
+                scale_t = to_device(scale, self.device, np.float32)
                 mats, ok = self._estimate(face_lm * scale_t)  # un-padded interim coords
-                windows = torch.tensor(window, dtype=torch.int32, device=self.device)
+                windows = to_device(window, self.device, np.int32)
                 windows = windows[None].expand(n * k, 4).contiguous()
                 # The rounded interim holds exact integers in [0, 255]: the
                 # uint8 cast is lossless.
@@ -287,8 +295,9 @@ class FusedPipeline:
 
     def _upload(self, images: np.ndarray, packed_hw) -> torch.Tensor:
         """The uint8 batch on the device: RGB as it is, or packed rows
-        reconstructed there (stage "unpack")."""
-        imgs = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        reconstructed there (stage "unpack").  The copy does not make the
+        host wait (:func:`.utils.device.to_device`)."""
+        imgs = to_device(images, self.device)
         if packed_hw is None:
             return imgs
         with self._stage("unpack"):
@@ -339,6 +348,10 @@ class FusedPipeline:
             two-program path needed several chunks, dropped a face whose
             fit was degenerate, or gated a face for enhancement.
         """
+        if self.single_program:
+            handle = self.process_async(images, interim_size, valid_n, pack_crops, packed_hw)
+            return self.process_finish(handle, return_device_crops)
+
         n = images.shape[0]
         valid_n = n if valid_n is None else min(int(valid_n), n)
         iw, ih = interim_size
@@ -349,14 +362,10 @@ class FusedPipeline:
         # faces, instead of every padded slot.  So does every strategy with
         # an enhancer, which needs the interim.
         enhanced = self.enh is not None
-        two_program = self.det.strategy == "all"
         h, w = imgs.shape[1:3]
         interim_crops = self.crop_source == "interim" and (h, w) != (ih, iw)
 
         def dispatch(args):
-            if not (two_program or enhanced):
-                out = self._run_core(imgs, ih, iw, args)
-                return out, out[3]
             face_lm, valid, caps, interim = self._detect_trace(imgs, ih, iw, args)
             # Keep only the pixels the crops sample (the enhancer's input is
             # the interim).  The rounded interim holds exact integers in
@@ -370,50 +379,122 @@ class FusedPipeline:
             return self._finish_enhanced(out, imgs, (ih, iw), valid_n, return_device_crops,
                                          pack_crops)
 
-        if two_program:
-            dev_face_lm, dev_valid, _caps, src_imgs = out
-            k = dev_face_lm.shape[0] // n
-            with self._stage("compact"):
-                keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
-            if len(keep) == 0:
-                return self._empty_result(return_device_crops, pack_crops)
+        dev_face_lm, dev_valid, _caps, src_imgs = out
+        k = dev_face_lm.shape[0] // n
+        with self._stage("compact"):
+            keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
+        if len(keep) == 0:
+            return self._empty_result(return_device_crops, pack_crops)
 
-            lm_scale, window = 1.0, None
-            if interim_crops:
-                lm_scale, win = self._interim_window(h, w, ih, iw)
-                window = torch.tensor(win, dtype=torch.int32, device=self.device)
-            crops_k, ok, dev_handle = self._crop_selected_chunked(
-                src_imgs, dev_face_lm, keep, lm_scale, window, pack_crops
-            )
-            with self._stage("to_host"):
-                face_lm = dev_face_lm.cpu().numpy()[keep][ok]
-                crops = crops_k if ok.all() else crops_k[ok]
-            indices = (keep[ok] // k).astype(np.int64)
-            if not return_device_crops:
-                return crops, face_lm, indices
-            # The chunk's output is compacted already; hand it on unless a
-            # degenerate fit punched a hole in it or several chunks ran.
-            return crops, face_lm, indices, (dev_handle if ok.all() else None)
-
-        dev_crops, dev_face_lm, dev_valid = out[0], out[1], out[2]
-        k = dev_valid.shape[0] // n
+        lm_scale, window = 1.0, None
+        if interim_crops:
+            lm_scale, win = self._interim_window(h, w, ih, iw)
+            window = torch.tensor(win, dtype=torch.int32, device=self.device)
+        crops_k, ok, dev_handle = self._crop_selected_chunked(
+            src_imgs, dev_face_lm, keep, lm_scale, window, pack_crops
+        )
         with self._stage("to_host"):
-            fetch = dev_crops[: valid_n * k]
-            crops = (rgb_to_yuv420(fetch) if pack_crops else fetch).cpu().numpy()
-            face_lm = dev_face_lm[: valid_n * k].cpu().numpy()
-            valid = dev_valid[: valid_n * k].cpu().numpy()
+            face_lm = dev_face_lm.cpu().numpy()[keep][ok]
+            crops = crops_k if ok.all() else crops_k[ok]
+        indices = (keep[ok] // k).astype(np.int64)
+        if not return_device_crops:
+            return crops, face_lm, indices
+        # The chunk's output is compacted already; hand it on unless a
+        # degenerate fit punched a hole in it or several chunks ran.
+        return crops, face_lm, indices, (dev_handle if ok.all() else None)
+
+    @property
+    def single_program(self) -> bool:
+        """Whether :meth:`process` runs detect and warp in one pass
+        (strategies "best"/"largest" without an enhancer), which
+        :meth:`process_async` and :meth:`process_finish` split."""
+        return self.enh is None and self.det.strategy != "all"
+
+    def process_async(
+        self,
+        images: np.ndarray,
+        interim_size: tuple[int, int],
+        valid_n: int | None = None,
+        pack_crops: bool = False,
+        packed_hw: tuple[int, int] | None = None,
+    ) -> dict:
+        """Dispatch half of :meth:`process` on the single-program path.
+
+        Uploads the batch without waiting (:meth:`_upload`), enqueues
+        detect→fit→warp (:meth:`_run_core`) on PyTorch's current stream
+        and the device→host copies of the first ``valid_n``·K crops (packed
+        on the device with ``pack_crops``), landmarks and validity and of
+        the caps into pinned buffers, records an event after them, and
+        returns a handle without waiting.  On the CPU the pass runs
+        synchronously.  Pass the handle to :meth:`process_finish`.
+        """
+        if not self.single_program:
+            raise ValueError("process_async runs strategies 'best'/'largest' without an enhancer")
+        n = images.shape[0]
+        valid_n = n if valid_n is None else min(int(valid_n), n)
+        iw, ih = interim_size
+        imgs = self._upload(images, packed_hw)
+
+        def dispatch(args):
+            out = self._run_core(imgs, ih, iw, args)
+            return out, out[3]
+
+        args = self.det._detect_args()
+        out, _caps = dispatch(args)
+        host, event = self._fetch_async(out, valid_n, pack_crops)
+        return {
+            "out": out,
+            "host": host,
+            "event": event,
+            "args": args,
+            "dispatch": dispatch,
+            "n_anchors": num_anchors(ih, iw),
+            "valid_n": valid_n,
+            "pack": pack_crops,
+        }
+
+    def _fetch_async(self, out, valid_n: int, pack: bool):
+        """Starts the host copies of a single-program result's real rows:
+        ((crops, landmarks, validity, caps), event) of :func:`_to_host_async`."""
+        crops, face_lm, valid, caps = out
+        rows = valid_n * (valid.shape[0] // caps.shape[0])
+        with self._stage("to_host"):
+            fetch = rgb_to_yuv420(crops[:rows]) if pack else crops[:rows]
+            return _to_host_async((fetch, face_lm[:rows], valid[:rows], caps))
+
+    def process_finish(self, handle: dict, return_device_crops: bool = False):
+        """Collects a :meth:`process_async` handle; returns what
+        :meth:`process` returns.
+
+        Waits for the handle's copies and resumes the cap-growth policy
+        (``RetinaFace.finish_growth``: a binding cap, or caps grown by a
+        batch finished after this one was dispatched, re-run the pass
+        synchronously), then compacts the face grid on the host.  With
+        ``return_device_crops`` the kept crops are also compacted on the
+        device into a power-of-two bucket whose rows beyond F repeat the
+        last kept face.
+        """
+        if handle["event"] is not None:
+            handle["event"].synchronize()
+        valid_n, host = handle["valid_n"], handle["host"]
+        out = self.det.finish_growth(handle["out"], host[3], handle["args"], handle["dispatch"],
+                                     handle["n_anchors"], valid_n)
+        if out is not handle["out"]:  # re-dispatched: fetch the new result
+            host, event = self._fetch_async(out, valid_n, handle["pack"])
+            if event is not None:
+                event.synchronize()
+        crops, face_lm, valid = (t.numpy() for t in host[:3])
+        k = out[2].shape[0] // out[3].shape[0]
         keep = np.nonzero(valid)[0]
         indices = (keep // k).astype(np.int64)
         if not return_device_crops:
             return crops[keep], face_lm[keep], indices
 
-        # Compact on the device into a power-of-two face bucket; rows beyond
-        # len(keep) repeat the last kept face.
         sel = np.zeros(next_pow2(max(len(keep), 1)), np.int64)
         sel[: len(keep)] = keep
         if len(keep):
             sel[len(keep) :] = keep[-1]
-        dev_compact = dev_crops.index_select(0, torch.from_numpy(sel).to(self.device))
+        dev_compact = out[0].index_select(0, torch.from_numpy(sel).to(self.device))
         return crops[keep], face_lm[keep], indices, dev_compact
 
     def _finish_enhanced(self, out, imgs, interim_hw, valid_n: int, return_device_crops: bool,

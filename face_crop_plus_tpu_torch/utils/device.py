@@ -5,7 +5,8 @@ computes in float32, as the JAX package does off the TPU
 (``face_crop_plus_tpu/models/detection.py:206``).  PyTorch lets cuDNN
 convolutions (and, when a caller asks, CUDA matmuls) run in TF32 by
 default; :func:`f32_precision` turns both off around the package's own work
-and restores the caller's settings after it.
+and restores the caller's settings after it.  :func:`to_device` moves host
+data to the card without making the host wait for the card.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 
@@ -33,6 +35,28 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "NVIDIA GPU by default; pass device='cpu' to run on the CPU."
         )
     return dev
+
+
+def to_device(values, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host data (an array or nested lists) as a tensor on ``device``.
+
+    On a CUDA device the data is staged in a pinned buffer from PyTorch's
+    caching host allocator and copied with ``non_blocking=True`` on the
+    current stream: the copy runs in stream order, behind the work already
+    enqueued, and the host goes on.  A blocking copy from pageable memory
+    would synchronise the stream, so the host would wait for every earlier
+    batch first.  The allocator records the copy on the buffer and reuses
+    it only after the copy is done.  Elsewhere the data is wrapped as
+    ``torch.from_numpy(...).to(device)``; a read-only array (a cached
+    grid) is copied first.
+    """
+    array = np.asarray(values, dtype, order="C")
+    host = torch.from_numpy(array if array.flags.writeable else array.copy())
+    if device.type != "cuda":
+        return host.to(device)
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(device, non_blocking=True)
 
 
 # The TF32 switches are process-wide, and worker threads of one directory

@@ -10,8 +10,8 @@ landmark-free mode (``-dt -1``), parsing (``-ag``, ``-mg``) and enhancement
 landmarks file (``-l``, byte for byte), the host-crop mode (``-hc 1``) and
 packed uploads (``-pu 1``) within ±1, packed fetches (``-pf 1``, JPEG
 files of rows within ±1, both warping in float: ``FCPT_NATIVE_WARP=0``)
-within 0.5 levels in mean and 8 at most.  ``-si auto`` (sharding over a
-multi-GPU topology) must raise.
+within 0.5 levels in mean and 8 at most.  ``-si auto`` (one process per
+GPU) is held by ``tests/test_torch_distributed.py``.
 """
 
 import json
@@ -111,13 +111,6 @@ def test_config_layering_matches_jax(clean_env, tmp_path):
 def test_requires_input_dir():
     with pytest.raises(ValueError, match="Input directory"):
         cli.parse_args([])
-
-
-@pytest.mark.parametrize("extra", [["-si", "auto"]])
-def test_unported_flags_raise(clean_env, tmp_path, extra):
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i", str(tmp_path), "-d", "cpu", *extra])
-    assert os.listdir(tmp_path) == []
 
 
 def _landmarks_for(src: str) -> str:
