@@ -170,10 +170,41 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    file's path hangs on its batch): the two name sets partition a
    one-process run's, pixels within ±1 (files differing counted), the
    pair's wall time beside one process's.  The phase's wall time.
-4. The ``kernels`` JSON line (phase 5's to 9's launches beside the
+10. The in-process data mesh, phase 3's settings (1024² interim, 256²
+   crops, batch 16, its 16×218×178 batches) with phase 5's tamed detector
+   weights: the random-init detector's fits of huge faces magnify the f32
+   rounding of another batch size into several levels.
+   Its batches are smooth (``smooth_batch``) at phase 3's 16×218×178:
+   "all" crops every candidate, some minified 20-50×, and on per-pixel
+   noise another batch size's f32 rounding moves their samples by several
+   levels; phase 3's noise batch runs at S = 4 as a diagnostic.
+   (a) ``Cropper(mesh=...)`` over a mesh of the one card: "largest" on
+   5 batches and "all" (one request after a warm-up) bitwise
+   equal to a single-device ``Cropper`` (crops, indices), K1 and the
+   warp launched by the one shard on every pass.  (b) Meshes repeating
+   the card, ``make_mesh(devices=[cuda:0] * S)`` for S = 2 and 4: indices
+   exactly the single device's, crops within ±1 (cuDNN may pick other
+   algorithms at 8 or 4 rows a shard); every shard's detect pass launches
+   K1 once and the warp at least once (counted a shard, by spies on the
+   per-shard calls); 13 images over 4 shards give 13 images' faces and
+   none of the padding rows'; faces/s and peak memory beside phase 3's,
+   and the host time to enqueue all S shards.  (c) Every stage on a mesh
+   of 2 repeated cards: ``process_dir`` over phase 5's directory, strategy
+   "all" (2 faces an image at most), tamed RRDBNet (23 RRDBs) gating 3
+   images (a threshold midway between two factors of a warm-up pass),
+   tamed BiSeNet at 512² with an attribute and a mask group, PNG: the
+   fused path ran, the gated rows went through the shard-local SR, the
+   tree's names equal the single device's, crops within ±1, mask pixels
+   (labels near ties may flip at another batch size) differing at most
+   1e-3 of them; ``FusedPipeline.process(packed_hw=...)`` on rows packed
+   by ``rgb_to_yuv420_np``: indices equal to the RGB run.  (d) With two
+   cards or more: (a)'s and (b)'s checks over ``make_mesh()`` (every card;
+   ±1), and ``Cropper(device="cuda:{n-1}")`` bitwise equal to cuda:0;
+   with one card a line says (d) did not run.  The phase's wall time.
+4. The ``kernels`` JSON line (phase 5's to 10's launches beside the
    others), the card line, and the ``ok`` line last.
 
-Phases 3-7 run with ``FCPT_HOST_CROP=0``: they hold the device path,
+Phases 3-7 and 9-10 run with ``FCPT_HOST_CROP=0``: they hold the device path,
 which "auto" gives on a card, in the CPU rehearsal too.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
@@ -2747,6 +2778,394 @@ def phase9_serving(batches, p5, device, card, rehearse):
     return dict(launches=launches, fps=rates, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the in-process data mesh
+# ---------------------------------------------------------------------------
+
+
+class ShardCounter:
+    """Per-shard calls and kernel launches of a mesh Cropper's fused pipeline.
+
+    Spies on the per-shard calls (each shard's detect pass, "best"/"largest"
+    pass and shard-local warps) and adds each call's K1 and warp launches to
+    its shard, which the replica it runs (or its place in the block list)
+    names; the shard-local warps run one shard at a time through the real
+    method, which does the same work.  ``enqueue_ms`` holds the host time
+    from the first shard's "largest" pass entering to the last one's
+    returning: every shard enqueued.
+    """
+
+    def __init__(self, cropper):
+        from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+        from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+
+        fused, det, s_count = cropper._fused, cropper.det_model, cropper.mesh.size
+        self.calls, self.k1, self.warp = [0] * s_count, [0] * s_count, [0] * s_count
+        self.enqueue_ms = []
+        real_trace, real_core, real_local = (fused._detect_trace, fused._run_core,
+                                             fused._crop_local_sharded)
+        start = [0.0]
+
+        def shard_of(net):
+            return next(i for i, r in enumerate(det.replicas()) if r is net)
+
+        def trace(block, ih, iw, args, net=None):
+            s, k0 = shard_of(net), nms_kern.launches
+            out = real_trace(block, ih, iw, args, net)
+            self.calls[s] += 1
+            self.k1[s] += nms_kern.launches - k0
+            return out
+
+        def core(block, ih, iw, args, net=None):
+            s, w0 = shard_of(net), warp_kern.launches
+            if s == 0:
+                start[0] = time.perf_counter()
+            out = real_core(block, ih, iw, args, net)
+            self.warp[s] += warp_kern.launches - w0
+            if s == s_count - 1:
+                self.enqueue_ms.append((time.perf_counter() - start[0]) * 1e3)
+            return out
+
+        def local(blocks, lm, local_idx, window=None):
+            c, outs = len(local_idx) // len(blocks), []
+            for s, block in enumerate(blocks):
+                w0 = warp_kern.launches
+                outs += real_local([block], lm[s * c : (s + 1) * c],
+                                   local_idx[s * c : (s + 1) * c], window)
+                self.warp[s] += warp_kern.launches - w0
+            return outs
+
+        fused._detect_trace, fused._run_core, fused._crop_local_sharded = trace, core, local
+
+    def reset(self):
+        for counts in (self.calls, self.k1, self.warp):
+            counts[:] = [0] * len(counts)
+
+
+def tree_files(root) -> dict:
+    """Relative path → path of every file under ``root``."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            out[os.path.relpath(os.path.join(d, f), root)] = os.path.join(d, f)
+    return out
+
+
+def compare_trees(dir_a, dir_b) -> tuple[bool, int, int, int, float]:
+    """(names equal, files differing, largest crop pixel difference, mask
+    files differing, share of mask pixels differing) of two grouped trees;
+    ``_mask`` directories hold masks, where a flipped label moves a pixel by
+    255."""
+    from face_crop_plus_tpu_torch.utils.io import imread_rgb
+
+    a, b = tree_files(dir_a), tree_files(dir_b)
+    if sorted(a) != sorted(b):
+        return False, -1, -1, -1, -1.0
+    files, crop_diff, mask_files, mask_px, mask_total = 0, 0, 0, 0, 0
+    for rel in a:
+        ia, ib = imread_rgb(a[rel]).astype(np.int16), imread_rgb(b[rel]).astype(np.int16)
+        d = np.abs(ia - ib)
+        files += int(d.max() > 0)
+        if "_mask" in os.path.dirname(rel):
+            mask_files += int(d.max() > 0)
+            mask_px += int((d.max(axis=-1) > 0).sum())
+            mask_total += d.shape[0] * d.shape[1]
+        else:
+            crop_diff = max(crop_diff, int(d.max()))
+    return True, files, crop_diff, mask_files, mask_px / max(mask_total, 1)
+
+
+def phase10_mesh(batches, p3, p5, device, card, rehearse):
+    """The in-process data mesh at full width; see the module docstring.
+
+    Returns each sub-phase's (K1, warp) launches for the kernels line.
+    """
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch import pipeline
+    from face_crop_plus_tpu_torch.models import enhancement as enh_mod
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.ops.yuv import rgb_to_yuv420_np, yuv420_to_rgb_np
+    from face_crop_plus_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    os.environ["FCPT_HOST_CROP"] = "0"
+    n, (h, w) = batches[0].shape[0], batches[0].shape[1:3]
+    out, resize = (32, 64) if rehearse else (256, 1024)
+    kw = dict(output_size=out, resize_size=resize, det_threshold=-1.0, batch_size=n)
+    launches = {"mesh_largest": [0, 0], "mesh_all": [0, 0]}
+    # Phase 3's shapes, smooth: "all" crops every candidate, some minified
+    # 20-50x, and on per-pixel noise another batch size's f32 rounding moves
+    # their samples by several levels (smooth_batch); phase 3's own noise
+    # batch runs beside, as a diagnostic.
+    noise = batches[5]
+    rng = np.random.default_rng(10)
+    batches = [smooth_batch(rng, (n, h, w, 3)) for _ in range(6)]
+
+    def reset_peak():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_line():
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+        return f"peak device memory {peak} B ({peak / 2**30:.6f} GiB)"
+
+    def tamed(cropper):
+        """Tamed detector weights (as phase 5's): faces of sane size, where
+        the random-init detector's fits of huge faces magnify the f32
+        rounding of another batch size into several levels."""
+        net = cropper.det_model.net
+        net.load_state_dict(tamed_state_dict(net))
+        return cropper
+
+    # The single device's results on the same batches.
+    single = tamed(Cropper(device=str(device), strategy="largest", **kw))
+    ref_largest, seconds = [], []
+    for b in batches[:5]:
+        t0 = time.perf_counter()
+        ref_largest.append(single.process_images(b))
+        seconds.append(time.perf_counter() - t0)
+    single_fps = {"largest": sum(len(r[1]) for r in ref_largest[1:]) / sum(seconds[1:])}
+    odd = np.concatenate(batches)[: 3 if rehearse else 13]  # not a multiple of 2 or 4
+    ref_odd = single._fused.process(odd, single.resize_size)
+    del single
+    single_all = tamed(Cropper(device=str(device), strategy="all", **kw))
+    single_all.process_images(batches[4])  # warm-up: the caps grow here
+    t0 = time.perf_counter()
+    ref_all = single_all.process_images(batches[5])
+    single_fps["all"] = len(ref_all[1]) / (time.perf_counter() - t0)
+    ref_noise = single_all.process_images(noise)
+    del single_all
+    log(f"  [{card}] single device, same requests: 'largest' {single_fps['largest']:.6f} "
+        f"faces/s over 4 after one warm-up, 'all' {single_fps['all']:.6f} faces/s "
+        f"({len(ref_all[1])} faces, one request after a warm-up)")
+
+    def run_mesh(devices, label, bound):
+        """"largest" over phase 3's batches and one "all" request after a
+        warm-up on a mesh over ``devices``: indices exactly the single
+        device's, crops within ``bound`` (0: bitwise), K1 once and the warp
+        at least once a shard a dispatch, and every shard launching."""
+        mesh = make_mesh(devices=devices)
+        s_count = mesh.size
+        reset_peak()
+        c = tamed(Cropper(mesh=mesh, strategy="largest", **kw))
+        counter = ShardCounter(c)
+        seconds, faces, worst, passes = [], [], 0, 0
+        nms_kern.launches = warp_kern.launches = 0
+        for r, batch in enumerate(batches[:5]):
+            counter.reset()
+            caps = c.det_model.pre_topk
+            t0 = time.perf_counter()
+            crops, idx, _ = c.process_images(batch)
+            seconds.append(time.perf_counter() - t0)
+            # A request whose caps grew re-ran every shard once more.
+            per = 2 if c.det_model.pre_topk != caps else 1
+            passes += per
+            faces.append(len(idx))
+            ref_crops, ref_idx, _ = ref_largest[r]
+            d = level_diff(crops, ref_crops)[0] if crops.shape == ref_crops.shape else 256
+            worst = max(worst, d)
+            if not np.array_equal(idx, ref_idx) or d > bound:
+                raise SystemExit(f"FAIL: {label} 'largest' request {r}: indices equal "
+                                 f"{np.array_equal(idx, ref_idx)}, crops max |diff| {d} "
+                                 f"(limit {bound})")
+            shards_ok = counter.calls == [per] * s_count and (rehearse or (
+                counter.k1 == [per] * s_count and counter.warp == [per] * s_count))
+            if not shards_ok:
+                raise SystemExit(f"FAIL: {label} 'largest' request {r}: per-shard calls "
+                                 f"{counter.calls}, K1 {counter.k1}, warp {counter.warp}")
+        lg = (nms_kern.launches, warp_kern.launches)
+        fps = sum(faces[1:]) / sum(seconds[1:])
+        log(f"  [{card}] {label} 'largest': {len(faces)} requests, indices equal, crops max "
+            f"|diff| {worst} (limit {bound}); {fps:.6f} faces/s over {len(faces) - 1} after "
+            f"one warm-up (phase 3 single device: {p3['fps']:.6f}); K1 launches {lg[0]}, warp "
+            f"{lg[1]} over {passes} passes of {s_count} shards ({passes - len(faces)} requests "
+            f"grew the caps and re-ran every shard); host time to enqueue all {s_count} shards' "
+            f"passes, median "
+            f"{float(np.median(counter.enqueue_ms)):.6f} ms, max "
+            f"{max(counter.enqueue_ms):.6f} ms; {peak_line()} (phase 3: {p3['peak']} B)")
+        if not rehearse and lg != (s_count * passes, s_count * passes):
+            raise SystemExit(f"FAIL: {label}: (K1, warp) launches {lg}, expected "
+                             f"{s_count} each a pass ({passes} passes)")
+        got = c._fused.process(odd, c.resize_size)
+        if (not np.array_equal(got[2], ref_odd[2]) or len(got[2]) != len(odd)
+                or got[2].max() >= len(odd)):
+            raise SystemExit(f"FAIL: {label}: {len(odd)} images over {s_count} shards gave "
+                             f"indices {got[2]}")
+        # Each shard's network runs its block padded to SHARD_PAD_SIZES, the
+        # single device the 13 rows as they are: cuDNN may sum otherwise.
+        d_odd = level_diff(got[0], ref_odd[0])[0]
+        log(f"  {label}: {len(odd)} images over {s_count} shards: {len(got[2])} faces, indices "
+            f"equal to the single device's, crops max |diff| {d_odd} (limit 1)")
+        if d_odd > 1:
+            raise SystemExit(f"FAIL: {label}: the {len(odd)}-image batch's crops differ by "
+                             f"{d_odd}")
+        del c
+
+        ca = tamed(Cropper(mesh=mesh, strategy="all", **kw))
+        counter = ShardCounter(ca)
+        ca.process_images(batches[4])  # warm-up: the caps grow here
+        counter.reset()
+        nms_kern.launches = warp_kern.launches = 0
+        t0 = time.perf_counter()
+        crops, idx, _ = ca.process_images(batches[5])
+        sec = time.perf_counter() - t0
+        al = (nms_kern.launches, warp_kern.launches)
+        ref_crops, ref_idx, _ = ref_all
+        same_idx = np.array_equal(idx, ref_idx)
+        d = level_diff(crops, ref_crops)[0] if same_idx else 256
+        log(f"  [{card}] {label} 'all': {len(idx)} faces (single device {len(ref_idx)}), indices "
+            f"equal {same_idx}, crops max |diff| {d} (limit {bound}); {len(idx) / sec:.6f} "
+            f"faces/s ({sec:.6f} s, one request after a warm-up); K1 launches {al[0]}, warp "
+            f"{al[1]}; per shard: K1 {counter.k1}, warp {counter.warp}; {peak_line()}")
+        if not same_idx or d > bound:
+            raise SystemExit(f"FAIL: {label} 'all' differs from the single device")
+        if min(counter.calls) < 1 or (not rehearse and (
+                al[0] != s_count or counter.k1 != [1] * s_count or min(counter.warp) < 1
+                or al[1] < s_count)):
+            raise SystemExit(f"FAIL: {label} 'all': launches {al}, per-shard calls "
+                             f"{counter.calls}, K1 {counter.k1}, warp {counter.warp}")
+        if s_count == 4:
+            crops, idx, _ = ca.process_images(noise)
+            same_idx = np.array_equal(idx, ref_noise[1])
+            d, share = level_diff(crops, ref_noise[0]) if same_idx else (-1, -1.0)
+            log(f"  {label} 'all' on phase 3's noise batch (a diagnostic, not held): "
+                f"{len(idx)} faces, indices equal {same_idx}, crops max |diff| {d}, share of "
+                f"values differing {share:.9f}")
+        del ca, crops
+        launches["mesh_largest"] = [a + b for a, b in zip(launches["mesh_largest"], lg)]
+        launches["mesh_all"] = [a + b for a, b in zip(launches["mesh_all"], al)]
+        return fps
+
+    # (a) a mesh of one device: bitwise the single device.
+    rates = {1: run_mesh([device], "(a) make_mesh(devices=[card])" if not rehearse
+                         else "(a) mesh of 1", 0)}
+    if not rehearse:
+        one = make_mesh(1)
+        if one.devices != (torch.device("cuda", 0),):
+            raise SystemExit(f"FAIL: make_mesh(1) gave {one.devices}")
+    # (b) repeated-card meshes: the sharding, padding and per-shard launches.
+    for s_count in (2, 4):
+        rates[s_count] = run_mesh([device] * s_count, f"(b) mesh of {s_count} x {device}", 1)
+
+    # (c) every stage on a mesh of 2: process_dir, "all", gated RRDBNet,
+    # BiSeNet with an attribute and a mask group, against the single device.
+    src, wdir, readable = p5["src"], p5["wdir"], p5["readable"]
+    dkw = dict(p5["kw"], strategy="all", max_faces=2, auto_grow=False, output_format="png")
+    gkw = dict(attr_groups={"has_1": [1]}, mask_groups={"face": list(range(1, 19))})
+    blocks = 1 if rehearse else 23
+    warm = Cropper(device=str(device), enh_threshold=-np.inf, **dkw)
+    seen = []
+    real_fused, real_enh = pipeline.mean_face_factor, enh_mod.mean_face_factor
+
+    def recording(*args, **kwargs):
+        seen.append(real_fused(*args, **kwargs))
+        return seen[-1]
+
+    pipeline.mean_face_factor = enh_mod.mean_face_factor = recording
+    try:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the capped detector warns once
+            warm.process_dir(src, os.path.join(p5["work"], "mesh_warm"), desc=None)
+        warm_s = time.perf_counter() - t0
+    finally:
+        pipeline.mean_face_factor, enh_mod.mean_face_factor = real_fused, real_enh
+    del warm
+    thr = midway(np.concatenate(seen), 3)
+    trees, enhanced = {}, {}
+    for label, where in (("single", dict(device=str(device))),
+                         ("mesh", dict(mesh=make_mesh(devices=[device] * 2)))):
+        reset_peak()
+        c = Cropper(enh_threshold=thr, **where, **dkw, **gkw)
+        if rehearse:
+            tame_enhancer(c.enh_model, blocks)
+        rows = count_enhanced(c.enh_model)
+        if label == "mesh":
+            counter = ShardCounter(c)
+            shard_rows = [0]
+            real_shards = c.enh_model.enhance_shards
+
+            def enhance_shards(blocks_in, *a, **k):
+                shard_rows[0] += sum(b.shape[0] for b in blocks_in)
+                return real_shards(blocks_in, *a, **k)
+
+            c.enh_model.enhance_shards = enhance_shards
+        nms_kern.launches = warp_kern.launches = 0
+        dst = os.path.join(p5["work"], f"mesh_{label}")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            c.process_dir(src, dst, desc=None)
+        sec = time.perf_counter() - t0
+        trees[label] = dst
+        crops = [f for f in tree_files(dst) if "_mask" not in f]
+        split = ", ".join(f"{k} {v['seconds']:.6f} s/{v['calls']} calls/{v['items']} items"
+                          for k, v in c.stats.as_dict().items())
+        log(f"  [{card}] (c) {label}: process_dir over {len(readable)} files, 'all' (2 faces "
+            f"an image at most), RRDBNet ({blocks} RRDBs) gate {thr:.9g}, BiSeNet groups: "
+            f"{len(crops)} crop files in {sec:.6f} s ({len(readable) / sec:.6f} files/s); "
+            f"{rows[0]} interim rows through enhance_device; K1 launches {nms_kern.launches}, "
+            f"warp {warp_kern.launches}; {peak_line()}; stages: {split}")
+        if c.stats.calls.get("detect+crop", 0) == 0:
+            raise SystemExit(f"FAIL: (c) {label}: the fused path did not run")
+        if label == "mesh":
+            launches["mesh_dir"] = (nms_kern.launches, warp_kern.launches)
+            enhanced["mesh"] = shard_rows[0]
+            log(f"  (c) mesh: {shard_rows[0]} rows through the shard-local SR "
+                f"(enhance_shards); per shard: detect passes {counter.calls}, K1 {counter.k1}, "
+                f"warp {counter.warp}")
+            if shard_rows[0] < 1 or min(counter.calls) < 1 or (
+                    not rehearse and (min(counter.k1) < 1 or min(counter.warp) < 1)):
+                raise SystemExit("FAIL: (c) the gated SR or a shard did not run on the mesh")
+            # The packed wire through the mesh's FusedPipeline.process.
+            packed = rgb_to_yuv420_np(batches[0])
+            got_p = c._fused.process(packed, c.resize_size, packed_hw=(h, w))
+            got_r = c._fused.process(yuv420_to_rgb_np(packed, h, w), c.resize_size)
+            same = np.array_equal(got_p[2], got_r[2])
+            log(f"  (c) mesh: FusedPipeline.process on rows packed by rgb_to_yuv420_np: "
+                f"{len(got_p[2])} faces, indices equal to the RGB run {same}, crops max |diff| "
+                f"{level_diff(got_p[0], got_r[0])[0] if same else -1}")
+            if not same:
+                raise SystemExit("FAIL: (c) packed rows on the mesh differ from RGB")
+        del c
+    names_ok, files, crop_diff, mask_files, mask_share = compare_trees(trees["single"],
+                                                                       trees["mesh"])
+    log(f"  [{card}] (c) mesh vs single device: names equal {names_ok}; files differing "
+        f"{files}; crops max |diff| {crop_diff} (limit 1); mask files differing {mask_files}, "
+        f"mask pixels differing {mask_share:.9f} (labels flipped by the parsers' other batch "
+        f"sizes; limit 1e-3); warm-up pass (nothing gated) {warm_s:.6f} s")
+    if not names_ok or crop_diff > 1 or mask_share > 1e-3:
+        raise SystemExit("FAIL: (c) the mesh's tree differs from the single device's")
+
+    # (d) distinct cards.
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if count >= 2:
+        rates["cards"] = run_mesh([torch.device("cuda", i) for i in range(count)],
+                                  f"(d) make_mesh() over {count} cards", 1)
+        c0 = tamed(Cropper(device="cuda:0", strategy="largest", **kw))
+        cn = tamed(Cropper(device=f"cuda:{count - 1}", strategy="largest", **kw))
+        for r, batch in enumerate(batches[:3]):
+            a, b = c0.process_images(batch), cn.process_images(batch)
+            if not same_result(a, b):
+                raise SystemExit(f"FAIL: (d) cuda:{count - 1} differs from cuda:0 on request {r}")
+        log(f"  [{card}] (d) Cropper(device='cuda:{count - 1}') bitwise equal to cuda:0 on 3 "
+            "requests")
+        del c0, cn
+    else:
+        log(f"  (d) not run: {count} card{'s' if count != 1 else ''} here; a mesh over distinct "
+            "cards and Cropper(device='cuda:1') need a second card")
+
+    wall = time.perf_counter() - t_phase
+    log(f"  [{card}] faces/s of 'largest' by mesh size: "
+        + ", ".join(f"{k}: {v:.6f}" for k, v in rates.items())
+        + f" (the single device {single_fps['largest']:.6f} on the same requests, phase 3 "
+        f"{p3['fps']:.6f})")
+    log(f"  phase 10 wall time {wall:.3f} s")
+    return dict(launches={k: tuple(v) for k, v in launches.items()}, fps=rates, wall=wall)
+
+
 def read_rgb(root, name):
     from face_crop_plus_tpu_torch.utils.io import imread_rgb
 
@@ -2764,7 +3183,8 @@ def _rows(timings: dict) -> dict:
             for (label, key), t in timings.items()}
 
 
-def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, p9) -> dict:
+def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, p9,
+             p10) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -2782,7 +3202,8 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, 
         "redesigned": "PR 3",
         "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"]
         + p7["warp"] + p7["dir_warp"] + sum(v[1] for v in p8["launches"].values())
-        + sum(v[1] for v in p9["launches"].values()),
+        + sum(v[1] for v in p9["launches"].values())
+        + sum(v[1] for v in p10["launches"].values()),
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
@@ -2793,6 +3214,7 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, 
         "launches_enhance_directory": p7["dir_warp"],
         **{f"launches_{k}": v[1] for k, v in p8["launches"].items()},
         **{f"launches_{k}": v[1] for k, v in p9["launches"].items()},
+        **{f"launches_{k}": v[1] for k, v in p10["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -3025,6 +3447,11 @@ def main() -> int:
         "path, the host-crop mode with and without packed uploads, a mixed stream, parsing at "
         "collect), two -si auto processes on the one card")
     p9 = phase9_serving(batches, p5, device, card, rehearse)
+
+    # -- phase 10 ----------------------------------------------------------
+    log("phase 10: the in-process data mesh: Cropper(mesh=...) over one card, repeated cards "
+        "(2, 4) and every card; 'largest', 'all', process_dir with every stage")
+    p10 = phase10_mesh(batches, {"fps": fps, "peak": peak}, p5, device, card, rehearse)
     shutil.rmtree(p5["work"], ignore_errors=True)
 
     # -- phase 4 -----------------------------------------------------------
@@ -3038,7 +3465,8 @@ def main() -> int:
         "redesigned": "PR 3",
         "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"]
         + p7["nms"] + p7["dir_nms"] + sum(v[0] for v in p8["launches"].values())
-        + sum(v[0] for v in p9["launches"].values()),
+        + sum(v[0] for v in p9["launches"].values())
+        + sum(v[0] for v in p10["launches"].values()),
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
@@ -3049,6 +3477,7 @@ def main() -> int:
         "launches_enhance_directory": p7["dir_nms"],
         **{f"launches_{k}": v[0] for k, v in p8["launches"].items()},
         **{f"launches_{k}": v[0] for k, v in p9["launches"].items()},
+        **{f"launches_{k}": v[0] for k, v in p10["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -3067,7 +3496,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5, p6, p7, p8, p9),
+               all_warp, p5, p6, p7, p8, p9, p10),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

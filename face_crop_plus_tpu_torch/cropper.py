@@ -73,7 +73,15 @@ host-crop mode and the YUV-direct crops run only when ``FCPT_HOST_CROP=1``
 or ``FCPT_YUV_CROP=1`` asks for them.  Nor does the port warp staged crops
 on the host merely because its device is the CPU: with
 ``FCPT_HOST_CROP=0`` every detected face crops through the warp kernel's
-wrapper.  Meshes raise ``NotImplementedError``.
+wrapper.
+
+On a mesh (``mesh=make_mesh(...)``, :mod:`.parallel.mesh`) every model
+holds one replica a shard and the fused pipeline shards each batch over
+the mesh's devices; the first device runs the rest (staged warps, fits).
+As in the JAX package, a mesh turns off the host-crop mode, the host
+warp, the YUV-direct crops and the parser's device handoff, and
+:meth:`Cropper.process_images_stream` runs every batch as
+:meth:`Cropper.process_images`.
 """
 
 from __future__ import annotations
@@ -95,6 +103,7 @@ from .ops.transform import (
     estimate_similarity_np,
 )
 from .ops.yuv import packed_length, rgb_to_yuv420_np, yuv420_to_rgb_np
+from .parallel.mesh import check_mesh
 from .utils import native_io
 from .utils.batching import as_batch, pad_batch_to
 from .utils.device import resolve_device
@@ -137,8 +146,9 @@ class Cropper:
 
     Args mirror the JAX ``Cropper``; ``device`` None (or "auto") means
     "cuda" and raises when CUDA is absent — pass ``device="cpu"`` to run on
-    the CPU.  ``landmarks`` is a landmarks file path (parsed here) or a
-    (landmarks (N, L, 2), file names (N,)) pair.  ``det_model``,
+    the CPU.  ``mesh`` is a :class:`.parallel.mesh.Mesh` (``make_mesh``);
+    it takes the place of ``device``.  ``landmarks`` is a landmarks file
+    path (parsed here) or a (landmarks (N, L, 2), file names (N,)) pair.  ``det_model``,
     ``enh_model`` and ``par_model`` are None when their feature is off (the
     detector also when landmarks are given); ``stats`` accumulates
     per-stage wall time (:class:`.utils.profiling.PipelineStats`).
@@ -198,10 +208,10 @@ class Cropper:
         self.num_std_landmarks = 5
         self.stats = PipelineStats()
 
-        self._check_ported()
+        check_mesh(mesh)
         if isinstance(self.landmarks, str):
             self.landmarks = parse_landmarks_file(self.landmarks)
-        self._device = resolve_device(device)
+        self._device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self._init_models()
         self._init_landmarks_target()
         self._init_fused()
@@ -214,13 +224,6 @@ class Cropper:
         #: f32 sums round differently: the tree would depend on
         #: ``num_processes``.
         self._device_lock = threading.Lock()
-
-    def _check_ported(self):
-        """Raises for configurations whose paths are not ported yet: meshes."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "face_crop_plus_tpu_torch does not port these paths yet: meshes"
-            )
 
     def _init_models(self):
         """Builds the models the configuration asks for.
@@ -244,6 +247,7 @@ class Cropper:
                 auto_grow=self.auto_grow,
                 weights_dir=self.weights_dir,
                 device=self._device,
+                mesh=self.mesh,
             )
         if self.enh_threshold is not None:
             from .models.enhancement import RRDBNet
@@ -252,6 +256,7 @@ class Cropper:
                 min_face_factor=self.enh_threshold,
                 weights_dir=self.weights_dir,
                 device=self._device,
+                mesh=self.mesh,
             )
         if self.attr_groups is not None or self.mask_groups is not None:
             from .models.parsing import BiSeNet
@@ -262,6 +267,7 @@ class Cropper:
                 max_batch_size=self.batch_size,
                 weights_dir=self.weights_dir,
                 device=self._device,
+                mesh=self.mesh,
             )
 
     def _init_fused(self):
@@ -282,6 +288,7 @@ class Cropper:
                 allow_skew=self.allow_skew,
                 crop_source=self.crop_source,
                 enh_model=self.enh_model,
+                mesh=self.mesh,
             )
 
     def _init_landmarks_target(self):
@@ -296,15 +303,16 @@ class Cropper:
         The JAX ``_host_crop_enabled`` (``cropper.py:275-310``):
         ``FCPT_HOST_CROP`` "0" off, "1" on, "auto" (default) on when the
         native host warp is built, but in the port on the CPU only (see
-        the module docstring).  Never under ``crop_source="interim"``,
-        whose interim exists only on the device.  Callers also need no
-        enhancer (gated crops sample the device's enhanced interim) and no
-        parser handoff.  In this mode fused groups run the detect-only
+        the module docstring).  Never on a mesh (shard-local warps scale
+        with it; the host would serialize them) nor under
+        ``crop_source="interim"``, whose interim exists only on the device.
+        Callers also need no enhancer (gated crops sample the device's
+        enhanced interim) and no parser handoff.  In this mode fused groups run the detect-only
         program; with the library missing the forced mode still warps on
         the device (:meth:`_native_warp` gives None).
         """
         env = os.environ.get("FCPT_HOST_CROP", "auto")
-        if env == "0" or self.crop_source != "original":
+        if env == "0" or self.mesh is not None or self.crop_source != "original":
             return False
         if env == "1":
             return True
@@ -462,12 +470,12 @@ class Cropper:
         when neither a detector nor an enhancer runs on the CPU, in the
         host-crop mode (``force``, or staged crops while
         :meth:`_host_crop_enabled`), and only when the native library is
-        built and ``FCPT_NATIVE_WARP`` is not "0".  Pixels already on a
-        card stay there for the warp kernel.  Threads: the host's cores
-        over ``num_processes``; 10-bit fixed point unless
+        built and ``FCPT_NATIVE_WARP`` is not "0"; never on a mesh.  Pixels
+        already on a card stay there for the warp kernel.  Threads: the
+        host's cores over ``num_processes``; 10-bit fixed point unless
         ``FCPT_WARP_EXACT=1``.
         """
-        if os.environ.get("FCPT_NATIVE_WARP") == "0":
+        if self.mesh is not None or os.environ.get("FCPT_NATIVE_WARP") == "0":
             return None
         if torch.is_tensor(images) and images.device.type != "cpu":
             return None
@@ -618,7 +626,10 @@ class Cropper:
                 and os.environ.get("FCPT_NATIVE_WARP") != "0")
 
     def _yuv_rows_possible(self) -> bool:
-        """Even output sides, and the native 4:2:0 warp and encoder built."""
+        """No mesh (the JAX ``cropper.py:792``), even output sides, and the
+        native 4:2:0 warp and encoder built."""
+        if self.mesh is not None:
+            return False
         wo, ho = self.output_size
         if wo % 2 or ho % 2 or min(wo, ho) < 2:
             return False
@@ -917,8 +928,9 @@ class Cropper:
 
         An empty, ragged or ineligible batch, strategy "all" outside the
         host-crop mode, and every batch of a configuration with an enhancer
-        first drain the queue and then run as :meth:`process_images`.  Each
-        result equals :meth:`process_images` of the same batch (also when
+        or a mesh (as in the JAX stream, whose host-crop mode a mesh turns
+        off) first drain the queue and then run as :meth:`process_images`.
+        Each result equals :meth:`process_images` of the same batch (also when
         a batch grows the detector's caps while later batches are in
         flight: their collect re-runs them with the grown caps), except
         under ``pack_upload``.  Parsing runs at collect time.  The device
@@ -974,7 +986,8 @@ class Cropper:
         Packed uploads are keyed ``("yuv420", h, w)``, the key packed
         groups take in :meth:`_process_detected`.
         """
-        if not images or len({im.shape for im in images}) > 1 or self.enh_model is not None:
+        if (not images or len({im.shape for im in images}) > 1 or self.enh_model is not None
+                or self.mesh is not None):
             return None
         host_crop = self._host_crop_enabled()
         if not (host_crop or self._fused.single_program):
@@ -1103,7 +1116,8 @@ class Cropper:
 
         # A batch without a fused group packs nothing: the JAX package runs
         # it through its generic staged block (``cropper.py:1354-1453``).
-        handoff = self.par_model is not None and len(fused_groups) == 1 and not staged_ids
+        handoff = (self.par_model is not None and self.mesh is None and len(fused_groups) == 1
+                   and not staged_ids)
         host_crop = (bool(fused_groups) and self.enh_model is None and not handoff
                      and self._host_crop_enabled())
         pack = (bool(fused_groups) and not host_crop

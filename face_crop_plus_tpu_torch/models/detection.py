@@ -12,6 +12,10 @@ JAX forward creates their parameters, so seeded random init draws the same
 weights in both packages.  PyTorch runs eagerly: there is no compiled
 program per static argument set, so the overridable knobs are read when a
 batch runs, and grown caps cost no recompile.
+
+On a mesh (``mesh=``, :mod:`..parallel.mesh`) every shard holds its own
+replica of the network and runs its block of the batch on its own card;
+the cap diagnostics of all shards feed one growth decision.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from ..ops.anchors import anchor_grid, num_anchors
 from ..ops.nms import select_faces
 from ..ops.nn import FoldedBatchNorm, conv, leaky_relu, resize_nearest, softmax
 from ..utils.batching import next_pow2
-from ..utils.device import f32_precision, resolve_device, to_device
+from ..parallel.mesh import Replicas, pad_to_multiple, shard_batch
+from ..utils.device import f32_precision, resolve_device, to_device, to_host
 from .backbones import ResNet50Features
 from .weights import load_or_init
 
@@ -39,6 +44,14 @@ _VARIANCES = (0.1, 0.2)
 #: Hard ceiling for grow-on-demand pre-NMS candidates (and the NMS kernel's
 #: largest K).
 _PRE_TOPK_CEILING = 1024
+
+#: Batch sizes a mesh shard's network runs at: its block is padded
+#: (repeating its last row) to the smallest of these that holds it, larger
+#: blocks run as they are.  cuDNN picks its convolution algorithms by batch
+#: size; on an H100 only 1, 8 and 16 of n = 1…16 run fast (``PERF.md`` §5,
+#: ``chip_smoke.py`` phase 5 (e)), and 8 rows a shard give the 16-row
+#: batch's sums bit for bit, 4 rows other ones (phase 10).
+SHARD_PAD_SIZES = (1, 8, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +206,14 @@ def decode_detections(loc, ldm, priors, image_size, variances=_VARIANCES):
     return boxes, pts.reshape(*ldm.shape[:-1], 10)
 
 
+def _host_caps(caps) -> np.ndarray:
+    """The (N, 2) cap diagnostic on the host: from a tensor, an array, or a
+    mesh's list of per-shard tensors (concatenated in shard order)."""
+    if isinstance(caps, (list, tuple)):
+        return np.concatenate([_host_caps(c) for c in caps])
+    return caps.cpu().numpy() if torch.is_tensor(caps) else np.asarray(caps)
+
+
 # ---------------------------------------------------------------------------
 # Model wrapper
 # ---------------------------------------------------------------------------
@@ -204,6 +225,8 @@ class RetinaFace:
     Attributes mirror the JAX package: ``strategy``, ``vis_threshold``,
     ``nms_threshold``, ``variance``, ``max_faces``, ``pre_topk``,
     ``auto_grow``; ``net`` is the :class:`RetinaFaceNet` on ``device``.
+    With a ``mesh`` the device is the mesh's first, and each shard runs a
+    replica of ``net`` (:meth:`replicas`).
     """
 
     #: Grow-on-demand ceiling for ``pre_topk``.
@@ -218,6 +241,7 @@ class RetinaFace:
         auto_grow: bool = True,
         weights_dir: str | None = None,
         device=None,
+        mesh=None,
     ):
         self.strategy = strategy
         self.vis_threshold = float(vis)
@@ -230,7 +254,8 @@ class RetinaFace:
         #: uncapped reference semantics.
         self.auto_grow = bool(auto_grow)
         self._cap_warned = False
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
 
         # float32 throughout, as the JAX package computes off the TPU: the
         # forward runs under f32_precision (TF32 off).
@@ -238,8 +263,15 @@ class RetinaFace:
         self.pretrained = load_or_init("retinaface", net, weights_dir)
         self.net = net.to(self.device).eval()
         self.net.requires_grad_(False)
+        self._replicas = None if mesh is None else Replicas(mesh)
 
-    def _detect(self, images: torch.Tensor, args: dict, stage=None):
+    def replicas(self) -> tuple:
+        """The network of each shard: one replica per mesh entry, kept
+        equal to :attr:`net` (:class:`..parallel.mesh.Replicas`), or
+        ``(net,)`` without a mesh."""
+        return (self.net,) if self._replicas is None else self._replicas.get(self.net)
+
+    def _detect(self, images: torch.Tensor, args: dict, stage=None, net=None):
         """Network, decode and face selection for a batch on the device.
 
         Args:
@@ -248,6 +280,9 @@ class RetinaFace:
             args: The knobs of :meth:`_detect_args` (or grown ones).
             stage: Optional ``stage(name)`` → context manager, entered
                 around "network" and "select".
+            net: The replica to run (a shard's, on the images' device);
+                :attr:`net` by default.  On a mesh the network runs the
+                block padded to :data:`SHARD_PAD_SIZES`.
 
         Returns:
             Padded landmarks (N, K, 10), validity (N, K) and int32 cap
@@ -255,9 +290,14 @@ class RetinaFace:
             launches the greedy-NMS kernel on a CUDA batch.
         """
         stage = stage or (lambda name: contextlib.nullcontext())
-        h, w = images.shape[1:3]
+        n, h, w = images.shape[:3]
         with stage("network"), f32_precision():
-            scores2, loc, ldm = retinaface_forward(self.net, preprocess(images))
+            x = preprocess(images)
+            rows = n if self.mesh is None else min(
+                (s for s in SHARD_PAD_SIZES if s >= n), default=n)
+            if rows > n:  # a shard's block, at a batch size cuDNN runs well
+                x = torch.cat([x, x[-1:].expand(rows - n, *x.shape[1:])])
+            scores2, loc, ldm = (t[:n] for t in retinaface_forward(net or self.net, x))
         with stage("select"):
             priors = to_device(anchor_grid(h, w), images.device)
             boxes, landms = decode_detections(loc, ldm, priors, (h, w), args["variances"])
@@ -333,7 +373,9 @@ class RetinaFace:
         """Runs a detect dispatch under the cap-growth retry policy.
 
         ``dispatch(args)`` must return ``(out, caps)`` where ``caps`` is the
-        (N, 2) cap diagnostic.  When a cap binds and
+        (N, 2) cap diagnostic, or on a mesh the list of every shard's (in
+        shard order: a cap binding on any shard grows the caps, and the
+        re-dispatch runs every shard).  When a cap binds and
         ``auto_grow`` is on, the dispatch re-runs with grown caps, and the
         grown caps persist on the model so later batches skip the retry.
         """
@@ -353,7 +395,7 @@ class RetinaFace:
             args = current
             out, caps = dispatch(args)
         while True:
-            caps_np = caps.cpu().numpy() if torch.is_tensor(caps) else np.asarray(caps)
+            caps_np = _host_caps(caps)
             grown = self.grown_args(caps_np[:valid_n], args, n_anchors)
             if grown is None:
                 return out
@@ -378,25 +420,40 @@ class RetinaFace:
         """Detection on an interim batch, returning padded host arrays.
 
         Counterpart of the JAX ``RetinaFace.detect_padded``
-        (``face_crop_plus_tpu/models/detection.py:396-427``) without its
-        mesh branch: the uint8 (N, H, W, 3) batch (a host array, or a
-        tensor already on :attr:`device`) runs under the cap-growth policy.
+        (``face_crop_plus_tpu/models/detection.py:396-427``): the uint8
+        (N, H, W, 3) batch (a host array, or a tensor) runs under the
+        cap-growth policy.  On a mesh it is padded to a multiple of the
+        mesh size, split into one block a shard, and every shard's pass is
+        enqueued on its card with its replica before any result is read;
+        results come back in shard order, the padding rows dropped.
 
         Returns:
             Landmarks (N, K, 10) float32 and validity (N, K) bool, where K
             is ``max_faces`` for strategy "all" and 1 otherwise.
         """
-        h, w = images.shape[1:3]
-        if not torch.is_tensor(images):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        imgs = images.to(self.device)
+        n, h, w = images.shape[:3]
+        if self.mesh is None:
+            if not torch.is_tensor(images):
+                images = torch.from_numpy(np.ascontiguousarray(images))
+            blocks = (images.to(self.device),)
+        elif torch.is_tensor(images):
+            rem = (-n) % self.mesh.size
+            if rem:
+                images = torch.cat([images, images[-1:].expand(rem, *images.shape[1:])])
+            blocks = shard_batch(images, self.mesh)
+        else:
+            blocks = shard_batch(pad_to_multiple(np.asarray(images), self.mesh.size)[0], self.mesh)
 
         def dispatch(args):
-            sel, valid, caps = self._detect(imgs, args)
-            return (sel, valid), caps
+            with f32_precision():  # once around every shard's pass
+                outs = [self._detect(b, args, net=net) for b, net in zip(blocks, self.replicas())]
+            return outs, [caps for _sel, _valid, caps in outs]
 
-        sel, valid = self.dispatch_with_growth(dispatch, num_anchors(h, w), len(images))
-        return sel.cpu().numpy(), valid.cpu().numpy()
+        outs = self.dispatch_with_growth(dispatch, num_anchors(h, w), n)
+        host = to_host(out[:2] for out in outs)
+        sel = np.concatenate([lm for lm, _valid in host])[:n]
+        valid = np.concatenate([v for _lm, v in host])[:n]
+        return sel, valid
 
     def predict(self, images: np.ndarray | torch.Tensor) -> tuple[np.ndarray, list[int]]:
         """Predicts landmark sets for a uint8 RGB (N, H, W, 3) image batch.

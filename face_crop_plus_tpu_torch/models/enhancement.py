@@ -29,6 +29,11 @@ the landmark-free mode keeps its tail tensors bounded.
 Packed 4:2:0 sources (``src_hw``) are reconstructed on the device before
 the network, and ``pack_out`` packs the enhanced images on the device for
 JPEG-bound saves (:mod:`..ops.yuv`).
+
+On a mesh (``mesh=``, :mod:`..parallel.mesh`) ``enh_batch_size`` rounds up
+to a multiple of the mesh size and every sub-batch splits into one block a
+shard, each enhanced on its card by its own replica
+(:meth:`RRDBNet.enhance_shards`).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from torch import nn
 from ..ops.nn import conv, downscale4x_bicubic, upsample2x_nearest
 from ..ops.warp import to_uint8
 from ..ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
-from ..utils.device import f32_precision, resolve_device
+from ..parallel.mesh import Replicas, shard_batch
+from ..utils.device import f32_precision, resolve_device, to_host
 from .weights import load_or_init
 
 _NF = 64  # trunk width
@@ -201,7 +207,10 @@ class RRDBNet:
     ``min_face_factor`` is the gate's threshold; ``net`` is the
     :class:`RRDBNetwork` on ``device``.  Images go through the network in
     sub-batches of ``enh_batch_size`` (1 by default, as the reference
-    enhances), a short last one padded by repeating its last row.
+    enhances), a short last one padded by repeating its last row.  With a
+    ``mesh`` the device is the mesh's first, ``enh_batch_size`` is a
+    multiple of the mesh size, and each shard runs its own replica of
+    ``net``.
     """
 
     def __init__(
@@ -211,26 +220,37 @@ class RRDBNet:
         weights_dir: str | None = None,
         device=None,
         num_blocks: int = _NUM_BLOCKS,
+        mesh=None,
     ):
         self.min_face_factor = float(min_face_factor)
         self.enh_batch_size = int(enh_batch_size)
         self.num_blocks = int(num_blocks)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        if mesh is not None:
+            # Sub-batches split evenly over the shards.
+            self.enh_batch_size = -(-self.enh_batch_size // mesh.size) * mesh.size
 
         net = RRDBNetwork(self.num_blocks)
         self.pretrained = load_or_init("rrdb", net, weights_dir, seed=_INIT_SEED)
         self.net = net.to(self.device).eval()
         self.net.requires_grad_(False)
+        self._replicas = None if mesh is None else Replicas(mesh)
 
-    def _sr_uint8(self, images: torch.Tensor) -> torch.Tensor:
+    def replicas(self) -> tuple:
+        """The network of each shard (``(net,)`` without a mesh)."""
+        return (self.net,) if self._replicas is None else self._replicas.get(self.net)
+
+    def _sr_uint8(self, images: torch.Tensor, net=None) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the device → enhanced uint8 (B, H, W, 3).
 
         /255, the network at 4x, the exact bicubic x0.25 back, clip to
-        [0, 1], x255, round half to even.
+        [0, 1], x255, round half to even.  ``net`` is the replica to run (a
+        shard's, on the images' device); :attr:`net` by default.
         """
         with f32_precision():
             x = images.permute(0, 3, 1, 2).to(torch.float32) / 255.0
-            lr = downscale4x_bicubic(self.net(x))
+            lr = downscale4x_bicubic((net or self.net)(x))
             out = to_uint8(torch.clamp(lr, 0.0, 1.0) * 255.0)
         return out.permute(0, 2, 3, 1).contiguous()
 
@@ -241,15 +261,38 @@ class RRDBNet:
         for start in range(0, n, bs):
             yield start, min(bs, n - start), np.minimum(np.arange(start, start + bs), n - 1)
 
+    def enhance_shards(self, blocks, src_hw=None, pack_out: bool = False) -> list:
+        """The mesh counterpart of :meth:`_sr_uint8`: block s of a sharded
+        sub-batch through shard s's replica on its own card, every shard
+        enqueued before the host waits.  ``src_hw`` marks the blocks as
+        packed 4:2:0 rows, ``pack_out`` packs the results (on each card).
+        The x4 tail runs in row strips above
+        :attr:`RRDBNetwork.tail_max_pixels` on every shard as without a
+        mesh."""
+        outs = []
+        with f32_precision():  # once around every shard's pass
+            for block, net in zip(blocks, self.replicas()):
+                if src_hw is not None:
+                    block = yuv420_to_rgb(block, *src_hw)
+                out = self._sr_uint8(block, net)
+                outs.append(rgb_to_yuv420(out) if pack_out else out)
+        return outs
+
     def enhance_device(self, images: torch.Tensor) -> torch.Tensor:
-        """Enhances a uint8 (N, H, W, 3) batch on the device, staying there."""
+        """Enhances a uint8 (N, H, W, 3) batch on the device, staying there
+        (on a mesh, each sub-batch sharded and gathered back to the
+        batch's device)."""
         n = images.shape[0]
-        if n == self.enh_batch_size:  # one full sub-batch: no gather
+        if n == self.enh_batch_size and self.mesh is None:  # one full sub-batch: no gather
             return self._sr_uint8(images)
         outs = []
         for _start, valid, rows in self._chunks(n):
             chunk = images.index_select(0, torch.from_numpy(rows).to(images.device))
-            outs.append(self._sr_uint8(chunk)[:valid])
+            if self.mesh is None:
+                outs.append(self._sr_uint8(chunk)[:valid])
+                continue
+            shards = self.enhance_shards(shard_batch(chunk, self.mesh))
+            outs.append(torch.cat([out.to(images.device) for out in shards])[:valid])
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def enhance_images(self, images: np.ndarray, src_hw=None, pack_out: bool = False) -> np.ndarray:
@@ -265,6 +308,11 @@ class RRDBNet:
         shape = (packed_length((w, h)),) if pack_out else (h, w, 3)
         out = np.empty((len(images),) + shape, np.uint8)
         for start, valid, rows in self._chunks(len(images)):
+            if self.mesh is not None:
+                shards = self.enhance_shards(shard_batch(images[rows], self.mesh), src_hw, pack_out)
+                res = np.concatenate([host for host, in to_host((t,) for t in shards)])
+                out[start : start + valid] = res[:valid]
+                continue
             chunk = torch.from_numpy(images[rows]).to(self.device)
             if src_hw is not None:
                 chunk = yuv420_to_rgb(chunk, *src_hw)

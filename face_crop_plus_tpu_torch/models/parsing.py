@@ -41,8 +41,9 @@ from ..ops.nn import (
     resize_nearest,
 )
 from ..ops.yuv import yuv420_to_rgb
+from ..parallel.mesh import Replicas, shard_batch
 from ..utils.batching import pad_batch_to
-from ..utils.device import f32_precision, resolve_device
+from ..utils.device import f32_precision, resolve_device, to_host
 from .weights import load_or_init
 
 #: ImageNet channel statistics used at training time.
@@ -232,6 +233,10 @@ class BiSeNet:
     ``batch_size`` by repeating its last face, as the JAX package pads, so
     the card runs one batch size (cuDNN picks its algorithms by batch size,
     and some picks are several times slower; see :mod:`..utils.batching`).
+    With a ``mesh`` (:mod:`..parallel.mesh`) the device is the mesh's first,
+    ``batch_size`` rounds up to a multiple of the mesh size, and every
+    sub-batch splits into one block a shard, parsed on its card by its own
+    replica of ``net``; results gather in shard order.
     """
 
     def __init__(
@@ -241,6 +246,7 @@ class BiSeNet:
         max_batch_size: int = 8,
         weights_dir: str | None = None,
         device=None,
+        mesh=None,
     ):
         self.attr_groups = attr_groups
         self.mask_groups = mask_groups
@@ -250,32 +256,42 @@ class BiSeNet:
         self.mask_threshold = 10
         self.mean = list(_MEAN)
         self.std = list(_STD)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        if mesh is not None:
+            # Sub-batches split evenly over the shards.
+            self.batch_size = -(-self.batch_size // mesh.size) * mesh.size
 
         net = BiSeNetNet()
         self.pretrained = load_or_init("bisenet", net, weights_dir, seed=_INIT_SEED)
         self.net = net.to(self.device).eval()
         self.net.requires_grad_(False)
+        self._replicas = None if mesh is None else Replicas(mesh)
 
-    def _logits(self, images: torch.Tensor) -> torch.Tensor:
+    def replicas(self) -> tuple:
+        """The network of each shard (``(net,)`` without a mesh)."""
+        return (self.net,) if self._replicas is None else self._replicas.get(self.net)
+
+    def _logits(self, images: torch.Tensor, net=None) -> torch.Tensor:
         """uint8 (B, H, W, 3) crops on the device → (B, 19, 512, 512) f32
         logits: /255, half-pixel bilinear to 512², ImageNet normalization
-        with the current ``mean``/``std``, the network."""
-        mean = torch.tensor([float(v) for v in self.mean], device=self.device)
-        std = torch.tensor([float(v) for v in self.std], device=self.device)
+        with the current ``mean``/``std``, the network (``net``, a shard's
+        replica on the crops' device; :attr:`net` by default)."""
+        mean = torch.tensor([float(v) for v in self.mean], device=images.device)
+        std = torch.tensor([float(v) for v in self.std], device=images.device)
         with f32_precision():
             x = (images.float() / 255.0).permute(0, 3, 1, 2)
             x = resize_bilinear_nchw(x, (_INFER_SIZE, _INFER_SIZE))
             x = (x - mean[:, None, None]) / std[:, None, None]
-            return self.net(x)
+            return (net or self.net)(x)
 
-    def _parse(self, images: torch.Tensor, out_h: int, out_w: int, src_hw=None):
+    def _parse(self, images: torch.Tensor, out_h: int, out_w: int, src_hw=None, net=None):
         """uint8 (B, H, W, 3) crops on the device → (labels (B, out_h, out_w)
         uint8, counts (B, 19) int32), both on the device.  With ``src_hw``
         the images are packed 4:2:0 rows (B, L) of that (h, w)."""
         if src_hw is not None:
             images = yuv420_to_rgb(images, *src_hw)
-        labels = self._logits(images).argmax(dim=1).to(torch.uint8)
+        labels = self._logits(images, net).argmax(dim=1).to(torch.uint8)
         labels = resize_nearest(labels[:, None], (out_h, out_w))[:, 0]
         b = labels.shape[0]
         offset = torch.arange(b, device=labels.device)[:, None, None] * NUM_CLASSES
@@ -284,7 +300,7 @@ class BiSeNet:
         return labels, counts.reshape(b, NUM_CLASSES).to(torch.int32)
 
     def _parse_packed(self, images: torch.Tensor, out_h: int, out_w: int,
-                      mask_attrs: tuple, src_hw=None):
+                      mask_attrs: tuple, src_hw=None, net=None):
         """Like :meth:`_parse`, with bit-packed per-group masks for labels.
 
         Each group's mask is padded on the right to a multiple of 8 columns
@@ -294,7 +310,7 @@ class BiSeNet:
             uint8 packed masks (G, B, out_h, ceil(out_w/8)) and int32 counts
             (B, 19), on the device.
         """
-        labels, counts = self._parse(images, out_h, out_w, src_hw)
+        labels, counts = self._parse(images, out_h, out_w, src_hw, net)
         w8 = -(-out_w // 8)
         weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=labels.device)
         packed = []
@@ -310,20 +326,36 @@ class BiSeNet:
 
         ``images`` is a host uint8 array or a tensor (crops handed over on
         the device by the fused pipeline: no re-upload).  A short last
-        sub-batch is padded by repeating its last row.
+        sub-batch is padded by repeating its last row.  On a mesh the
+        sub-batch is a tuple of one block a shard, each on its device.
         """
         bs = self.batch_size
         for start in range(0, images.shape[0], bs):
             chunk = images[start : start + bs]
             valid = chunk.shape[0]
             if torch.is_tensor(chunk):
-                chunk = chunk.to(self.device)
+                if self.mesh is None:
+                    chunk = chunk.to(self.device)
                 if valid < bs:
                     chunk = torch.cat([chunk, chunk[-1:].expand(bs - valid, *chunk.shape[1:])])
             else:
-                padded, _ = pad_batch_to(chunk, bs)
-                chunk = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
+                chunk = np.ascontiguousarray(pad_batch_to(chunk, bs)[0])
+                if self.mesh is None:
+                    chunk = torch.from_numpy(chunk).to(self.device)
+            if self.mesh is not None:
+                chunk = shard_batch(chunk, self.mesh)
             yield chunk, start, valid
+
+    def _each_shard(self, imgs, fn) -> list[tuple[np.ndarray, ...]]:
+        """``fn(block, net)`` on a sub-batch: on every shard's block with its
+        replica (every shard enqueued before the host waits on any), or on
+        the whole sub-batch with :attr:`net`.  Returns each shard's host
+        arrays, in shard order."""
+        if self.mesh is None:
+            return to_host([fn(imgs, self.net)])
+        with f32_precision():  # once around every shard's pass
+            outs = [fn(block, net) for block, net in zip(imgs, self.replicas())]
+        return to_host(outs)
 
     @staticmethod
     def _out_hw(images, src_hw) -> tuple[int, int]:
@@ -341,9 +373,9 @@ class BiSeNet:
         labels_out = np.empty((n, h, w), np.uint8)
         counts_out = np.empty((n, NUM_CLASSES), np.int32)
         for imgs, start, valid in self._sub_batches(images):
-            labels, counts = self._parse(imgs, h, w, src_hw)
-            labels_out[start : start + valid] = labels[:valid].cpu().numpy()
-            counts_out[start : start + valid] = counts[:valid].cpu().numpy()
+            shards = self._each_shard(imgs, lambda b, net: self._parse(b, h, w, src_hw, net))
+            labels_out[start : start + valid] = np.concatenate([s[0] for s in shards])[:valid]
+            counts_out[start : start + valid] = np.concatenate([s[1] for s in shards])[:valid]
         return labels_out, counts_out
 
     def parse_counts(self, images, src_hw=None) -> np.ndarray:
@@ -353,8 +385,8 @@ class BiSeNet:
         h, w = self._out_hw(images, src_hw)
         counts_out = np.empty((n, NUM_CLASSES), np.int32)
         for imgs, start, valid in self._sub_batches(images):
-            _labels, counts = self._parse(imgs, h, w, src_hw)
-            counts_out[start : start + valid] = counts[:valid].cpu().numpy()
+            shards = self._each_shard(imgs, lambda b, net: self._parse(b, h, w, src_hw, net)[1:])
+            counts_out[start : start + valid] = np.concatenate([s[0] for s in shards])[:valid]
         return counts_out
 
     def parse_batch_packed(self, images, mask_attrs: tuple,
@@ -369,9 +401,11 @@ class BiSeNet:
         packed_out = np.empty((len(mask_attrs), n, h, -(-w // 8)), np.uint8)
         counts_out = np.empty((n, NUM_CLASSES), np.int32)
         for imgs, start, valid in self._sub_batches(images):
-            packed, counts = self._parse_packed(imgs, h, w, mask_attrs, src_hw)
-            packed_out[:, start : start + valid] = packed[:, :valid].cpu().numpy()
-            counts_out[start : start + valid] = counts[:valid].cpu().numpy()
+            shards = self._each_shard(
+                imgs, lambda b, net: self._parse_packed(b, h, w, mask_attrs, src_hw, net))
+            packed = np.concatenate([s[0] for s in shards], axis=1)
+            packed_out[:, start : start + valid] = packed[:, :valid]
+            counts_out[start : start + valid] = np.concatenate([s[1] for s in shards])[:valid]
         return packed_out, counts_out
 
     # -- grouping (host, from the device's counts and masks) -------------

@@ -33,7 +33,16 @@ of stored YCbCr planes at 1.5 bytes a pixel, and the RGB reconstruction
 resident as the batch every path above detects on and crops from.
 Packed fetches (``pack_crops``): the host-bound copy of the crops is
 packed on the device (:func:`.ops.yuv.rgb_to_yuv420`) before it comes
-down; a device handoff stays RGB.  Meshes are not ported.
+down; a device handoff stays RGB.
+
+On a mesh (``mesh=``, :mod:`.parallel.mesh`) the batch is padded to a
+multiple of the mesh size and split into one block a shard; every shard
+runs the same passes on its own card with its own replica of each
+network, and all shards are enqueued before the host waits on any.  Faces
+index images of their own shard, so compaction, gated super-resolution
+and warps stay shard-local (:meth:`FusedPipeline._crop_rows_mesh`,
+:meth:`FusedPipeline._finish_gated_mesh`); a mesh of one device takes the
+same code as a mesh of S.  No device crops are handed on from a mesh.
 
 On the single-program path, :meth:`FusedPipeline.process_async` and
 :meth:`FusedPipeline.process_finish` split a batch into its dispatch and
@@ -57,8 +66,14 @@ from .ops.nn import resize_bilinear
 from .ops.transform import estimate_affine, estimate_similarity
 from .ops.warp import to_uint8
 from .ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
+from .parallel.mesh import (
+    pad_to_multiple,
+    partition_by_shard,
+    partition_rows_by_shard,
+    shard_batch,
+)
 from .utils.batching import next_pow2
-from .utils.device import to_device
+from .utils.device import f32_precision, to_device, to_host, to_host_async
 
 
 def interim_geometry(
@@ -96,23 +111,10 @@ def device_resize_pad(
     return x, scale, pad
 
 
-def _to_host_async(tensors) -> tuple[tuple[torch.Tensor, ...], torch.cuda.Event | None]:
-    """Starts device→host copies of ``tensors``; returns (host tensors, event).
-
-    On a CUDA device the copies go into pinned buffers, enqueued with
-    ``non_blocking=True`` on the current stream, and the returned event
-    completes with them.  CPU tensors come back as they are, with no event.
-    """
-    if tensors[0].device.type != "cuda":
-        return tuple(tensors), None
-    host = []
-    for t in tensors:
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        buf.copy_(t, non_blocking=True)
-        host.append(buf)
-    event = torch.cuda.Event()
-    event.record()
-    return tuple(host), event
+def _cat_shards(host) -> tuple[torch.Tensor, ...]:
+    """Every shard's host tuple of arrays or tensors, concatenated in shard
+    order into one tuple of tensors."""
+    return tuple(torch.cat([torch.as_tensor(t) for t in ts]) for ts in zip(*host))
 
 
 class FusedPipeline:
@@ -143,6 +145,7 @@ class FusedPipeline:
         allow_skew: bool = False,
         crop_source: str = "original",
         enh_model=None,
+        mesh=None,
     ):
         if crop_source not in ("original", "interim"):
             raise ValueError(f"unknown crop_source: {crop_source!r}")
@@ -156,6 +159,8 @@ class FusedPipeline:
         #: sources) or "interim" (the uint8 detector-resolution batch, the
         #: reference's sampling, for parity runs).
         self.crop_source = crop_source
+        #: The :class:`.parallel.mesh.Mesh` the batch shards over, or None.
+        self.mesh = mesh
         self.stage_timer = None
 
     @property
@@ -174,14 +179,16 @@ class FusedPipeline:
         scale, (t, b, l, r) = interim_geometry(h, w, (interim_w, interim_h))
         return scale, (t, l, interim_h - t - b, interim_w - l - r)
 
-    def _detect_trace(self, images: torch.Tensor, interim_h: int, interim_w: int, args: dict):
+    def _detect_trace(self, images: torch.Tensor, interim_h: int, interim_w: int, args: dict,
+                      net=None):
         """Detect stage shared by every path.
 
         uint8 (N, H, W, 3) device batch → (landmarks (N·K, 5, 2) in source
         image coordinates, validity (N·K,), cap diagnostics (N, 2), float32
         interim batch).  K is 1 for "best"/"largest" and ``max_faces`` for
         "all".  When the interim size differs from the input shape, the
-        resize+pad runs on the device.
+        resize+pad runs on the device.  ``net`` is the detector replica of
+        the images' shard (the detector's own by default).
         """
         n, h, w, _ = images.shape
         with self._stage("resize_pad"):
@@ -190,16 +197,17 @@ class FusedPipeline:
             else:
                 interim, scale, pad = images.to(torch.float32), 1.0, (0, 0, 0, 0)
 
-        sel, valid, caps = self.det._detect(interim, args, self._stage)
+        sel, valid, caps = self.det._detect(interim, args, self._stage, net)
         with self._stage("select"):
             k = sel.shape[1]
             # Landmarks back to source-image coordinates: un-pad, un-scale.
-            offset = to_device([pad[2], pad[0]], self.device, np.float32)
-            scale_t = to_device(scale, self.device, np.float32)
+            offset = to_device([pad[2], pad[0]], images.device, np.float32)
+            scale_t = to_device(scale, images.device, np.float32)
             face_lm = (sel.reshape(n * k, 5, 2) - offset) / scale_t
         return face_lm, valid.reshape(n * k), caps, interim
 
-    def _run_core(self, images: torch.Tensor, interim_h: int, interim_w: int, args: dict):
+    def _run_core(self, images: torch.Tensor, interim_h: int, interim_w: int, args: dict,
+                  net=None):
         """Single-dispatch detect→estimate→warp (strategies best/largest).
 
         uint8 (N, H, W, 3) → (crops u8 (N·K, Ho, Wo, 3), landmarks, valid,
@@ -208,17 +216,17 @@ class FusedPipeline:
         rounded interim inside its un-padded window, with the landmarks
         scaled to interim coordinates.
         """
-        face_lm, valid, caps, interim = self._detect_trace(images, interim_h, interim_w, args)
+        face_lm, valid, caps, interim = self._detect_trace(images, interim_h, interim_w, args, net)
         n, h, w, _ = images.shape
         k = face_lm.shape[0] // n
         with self._stage("fit_warp"):
-            img_idx = torch.arange(n, dtype=torch.int32, device=self.device)
+            img_idx = torch.arange(n, dtype=torch.int32, device=images.device)
             img_idx = img_idx.repeat_interleave(k)
             if self.crop_source == "interim" and (h, w) != (interim_h, interim_w):
                 scale, window = self._interim_window(h, w, interim_h, interim_w)
-                scale_t = to_device(scale, self.device, np.float32)
+                scale_t = to_device(scale, images.device, np.float32)
                 mats, ok = self._estimate(face_lm * scale_t)  # un-padded interim coords
-                windows = to_device(window, self.device, np.int32)
+                windows = to_device(window, images.device, np.int32)
                 windows = windows[None].expand(n * k, 4).contiguous()
                 # The rounded interim holds exact integers in [0, 255]: the
                 # uint8 cast is lossless.
@@ -281,7 +289,7 @@ class FusedPipeline:
             sel[: len(sub)] = sub
             with self._stage("fit_warp"):
                 dev_crops, dev_ok = self._crop_selected(
-                    imgs, face_lm, torch.from_numpy(sel).to(self.device), lm_scale, window
+                    imgs, face_lm, torch.from_numpy(sel).to(imgs.device), lm_scale, window
                 )
             if f <= chunk:
                 dev_handle = dev_crops
@@ -346,8 +354,12 @@ class FusedPipeline:
             (F,); with ``return_device_crops`` a 4th element, the device
             crop tensor of bucketed length F' >= F, or None when the
             two-program path needed several chunks, dropped a face whose
-            fit was degenerate, or gated a face for enhancement.
+            fit was degenerate, or gated a face for enhancement, and
+            always on a mesh.
         """
+        if self.mesh is not None:
+            result = self._process_mesh(images, interim_size, valid_n, pack_crops, packed_hw)
+            return (*result, None) if return_device_crops else result
         if self.single_program:
             handle = self.process_async(images, interim_size, valid_n, pack_crops, packed_hw)
             return self.process_finish(handle, return_device_crops)
@@ -430,6 +442,9 @@ class FusedPipeline:
         """
         if not self.single_program:
             raise ValueError("process_async runs strategies 'best'/'largest' without an enhancer")
+        if self.mesh is not None:
+            raise ValueError("process_async runs on one device; on a mesh, process runs every "
+                             "shard")
         n = images.shape[0]
         valid_n = n if valid_n is None else min(int(valid_n), n)
         iw, ih = interim_size
@@ -460,7 +475,7 @@ class FusedPipeline:
         rows = valid_n * (valid.shape[0] // caps.shape[0])
         with self._stage("to_host"):
             fetch = rgb_to_yuv420(crops[:rows]) if pack else crops[:rows]
-            return _to_host_async((fetch, face_lm[:rows], valid[:rows], caps))
+            return to_host_async((fetch, face_lm[:rows], valid[:rows], caps))
 
     def process_finish(self, handle: dict, return_device_crops: bool = False):
         """Collects a :meth:`process_async` handle; returns what
@@ -517,7 +532,6 @@ class FusedPipeline:
         every fit was sound.
         """
         dev_face_lm, dev_valid, _caps, dev_interim = out
-        ih, iw = interim_hw
         h, w = imgs.shape[1:3]
         k = dev_face_lm.shape[0] // imgs.shape[0]
         with self._stage("compact"):
@@ -527,11 +541,8 @@ class FusedPipeline:
         face_lm = dev_face_lm.cpu().numpy()[keep]  # (F, 5, 2) source coordinates
         indices = (keep // k).astype(np.int64)
 
-        scale, win = self._interim_window(h, w, ih, iw)
+        scale, win, gated, is_gated = self._gate(face_lm, indices, (h, w), interim_hw, valid_n)
         window = torch.tensor(win, dtype=torch.int32, device=self.device)
-        factors = mean_face_factor(face_lm * scale, indices.tolist(), valid_n, (ih, iw))
-        gated = np.nonzero(np.isfinite(factors) & (factors <= self.enh.min_face_factor))[0]
-        is_gated = np.isin(indices, gated)
 
         crops_all = np.empty((len(keep),) + self._empty_crops(pack).shape[1:], np.uint8)
         ok_all = np.zeros(len(keep), bool)
@@ -578,6 +589,18 @@ class FusedPipeline:
             return crops, face_lm, indices
         return crops, face_lm, indices, (dev_handle if ok_all.all() else None)
 
+    def _gate(self, face_lm: np.ndarray, indices: np.ndarray, src_hw, interim_hw, valid_n: int):
+        """The enhancer's gate: (interim scale, un-padded interim window,
+        gated image indices, per-face gated mask).  Each real image's mean
+        face factor, measured in interim coordinates against the full
+        padded interim area (the reference's quirk), is compared with the
+        enhancer's threshold."""
+        (h, w), (ih, iw) = src_hw, interim_hw
+        scale, win = self._interim_window(h, w, ih, iw)
+        factors = mean_face_factor(face_lm * scale, indices.tolist(), valid_n, (ih, iw))
+        gated = np.nonzero(np.isfinite(factors) & (factors <= self.enh.min_face_factor))[0]
+        return scale, win, gated, np.isin(indices, gated)
+
     def detect_only(
         self,
         images: np.ndarray,
@@ -614,6 +637,8 @@ class FusedPipeline:
         n = images.shape[0]
         valid_n = n if valid_n is None else min(int(valid_n), n)
         iw, ih = interim_size
+        if self.mesh is not None:
+            return self._detect_only_mesh_async(images, ih, iw, valid_n, packed_hw)
         imgs = self._upload(images, packed_hw)
 
         def dispatch(args):
@@ -622,7 +647,7 @@ class FusedPipeline:
 
         args = self.det._detect_args()
         out, _caps = dispatch(args)
-        host, event = _to_host_async(out)
+        host, event = to_host_async(out)
         return {
             "out": host,
             "event": event,
@@ -638,16 +663,299 @@ class FusedPipeline:
 
         Waits for the handle's copies, resumes the cap-growth retries of
         the synchronous path (``RetinaFace.finish_growth``), then compacts
-        the padded face grid on the host.
+        the padded face grid on the host.  A mesh handle holds one event
+        and one host tuple a shard.
         """
-        if handle["event"] is not None:
-            handle["event"].synchronize()
+        events, out = handle["event"], handle["out"]
+        for event in events if isinstance(events, list) else [events]:
+            if event is not None:
+                event.synchronize()
+        if isinstance(out, list):  # a mesh: every shard's host tuple
+            out = _cat_shards(out)
         valid_n = handle["valid_n"]
-        out = handle["out"]
-        face_lm, valid, _caps = self.det.finish_growth(
+        out = self.det.finish_growth(
             out, out[2], handle["args"], handle["dispatch"], handle["n_anchors"], valid_n
         )
+        if isinstance(out, list):  # re-dispatched on a mesh
+            out = _cat_shards(to_host(out))
+        face_lm, valid, _caps = out
         k = valid.shape[0] // handle["n"]
         keep = np.nonzero(valid[: valid_n * k].cpu().numpy())[0]
         lm = face_lm.cpu().numpy()[keep].astype(np.float32)
         return lm, (keep // k).astype(np.int64)
+
+    # ------------------------------------------------------------------
+    # The mesh: one program a shard, shard-local compaction
+    #
+    # Faces index images of their own shard (the face grid of image i
+    # lives on i's shard), so compaction, gated-SR gathers and warps run
+    # within each shard: no tensor crosses shards.  Each shard runs on its
+    # own card and that card's current stream; every shard is enqueued
+    # before the host waits on any (:func:`.utils.device.to_host`).
+    # ------------------------------------------------------------------
+
+    def _mesh_upload(self, images: np.ndarray, valid_n: int, packed_hw):
+        """The batch padded to a multiple of the mesh size and split into one
+        block a shard (reconstructed on each card from packed rows, stage
+        "unpack"), and the real rows: ``min(caller's valid_n, N)``."""
+        padded, mesh_valid = pad_to_multiple(np.asarray(images), self.mesh.size)
+        blocks = shard_batch(padded, self.mesh)
+        if packed_hw is not None:
+            with self._stage("unpack"):
+                blocks = tuple(yuv420_to_rgb(b, *packed_hw) for b in blocks)
+        return blocks, min(valid_n, mesh_valid)
+
+    def _process_mesh(self, images, interim_size, valid_n, pack: bool, packed_hw):
+        """The mesh side of :meth:`process` (JAX ``pipeline.py:972-977``,
+        ``:1068-1080``); returns host (crops, landmarks, indices).
+
+        "best"/"largest" without an enhancer run :meth:`_run_core` on every
+        shard and fetch each shard's rows; otherwise every shard runs the
+        detect pass, the host compacts the face grid, and the kept faces
+        warp shard-locally (:meth:`_crop_rows_mesh`), or go through the
+        gate (:meth:`_finish_enhanced_mesh`).
+        """
+        n = images.shape[0]
+        valid_n = n if valid_n is None else min(int(valid_n), n)
+        iw, ih = interim_size
+        blocks, valid_n = self._mesh_upload(images, valid_n, packed_hw)
+        if self.single_program:
+            return self._mesh_core(blocks, ih, iw, valid_n, pack)
+
+        n_pad = len(blocks) * blocks[0].shape[0]
+        h, w = blocks[0].shape[1:3]
+        enhanced = self.enh is not None
+        interim_crops = self.crop_source == "interim" and (h, w) != (ih, iw)
+
+        def dispatch(args):
+            outs = []
+            with f32_precision():  # once around every shard's pass
+                for block, net in zip(blocks, self.det.replicas()):
+                    face_lm, valid, caps, interim = self._detect_trace(block, ih, iw, args, net)
+                    # The rounded interim holds exact integers: the cast is lossless.
+                    src = to_uint8(interim).contiguous() if interim_crops or enhanced else block
+                    outs.append((face_lm, valid, caps, src))
+            return outs, [out[2] for out in outs]
+
+        outs = self.det.dispatch_with_growth(dispatch, num_anchors(ih, iw), valid_n)
+        with self._stage("compact"):
+            face_lm, valid = (np.concatenate(x) for x in zip(*to_host(o[:2] for o in outs)))
+            k = face_lm.shape[0] // n_pad
+            keep = np.nonzero(valid[: valid_n * k])[0]
+        if len(keep) == 0:
+            return self._empty_result(False, pack)
+        face_lm, indices = face_lm[keep], (keep // k).astype(np.int64)
+        srcs = [out[3] for out in outs]
+        if enhanced:
+            return self._finish_enhanced_mesh(blocks, srcs, face_lm, indices, (ih, iw),
+                                              valid_n, pack)
+
+        lm_scale, window = 1.0, None
+        if interim_crops:
+            lm_scale, window = self._interim_window(h, w, ih, iw)
+        n_loc = blocks[0].shape[0]
+        crops = np.empty((len(indices),) + self._empty_crops(pack).shape[1:], np.uint8)
+        ok = np.zeros(len(indices), bool)
+        self._crop_rows_mesh(srcs, face_lm * np.float32(lm_scale), indices // n_loc,
+                             indices % n_loc, window, pack, crops, ok, np.arange(len(indices)))
+        return crops[ok], face_lm[ok], indices[ok]
+
+    def _mesh_core(self, blocks, ih: int, iw: int, valid_n: int, pack: bool):
+        """"best"/"largest" on a mesh: :meth:`_run_core` on every shard, the
+        host copies of every shard started before the host waits, then the
+        cap-growth policy (``RetinaFace.finish_growth`` over the shards'
+        caps: a cap binding on any shard re-runs every shard) and the host
+        compaction of :meth:`process_finish`."""
+        b = blocks[0].shape[0]
+
+        def dispatch(args):
+            with f32_precision():  # once around every shard's pass
+                outs = [self._run_core(block, ih, iw, args, net)
+                        for block, net in zip(blocks, self.det.replicas())]
+            return outs, [out[3] for out in outs]
+
+        def fetch(outs):
+            with self._stage("to_host"):
+                return [np.concatenate(x) for x in zip(*to_host(
+                    (rgb_to_yuv420(crops) if pack else crops, lm, valid, caps)
+                    for crops, lm, valid, caps in outs))]
+
+        args = self.det._detect_args()
+        outs, _caps = dispatch(args)
+        host = fetch(outs)
+        grown = self.det.finish_growth(outs, host[3], args, dispatch, num_anchors(ih, iw),
+                                       valid_n)
+        if grown is not outs:  # re-dispatched: fetch the new result
+            host = fetch(grown)
+        crops, face_lm, valid = host[:3]
+        k = valid.shape[0] // (b * len(blocks))
+        keep = np.nonzero(valid[: valid_n * k])[0]
+        return crops[keep], face_lm[keep], (keep // k).astype(np.int64)
+
+    def _crop_local_sharded(self, blocks, lm: np.ndarray, local_idx: np.ndarray, window=None):
+        """Shard-local estimate→warp: per shard, the fits of its C landmark
+        rows and the warp of its own images (JAX ``_crop_local_sharded``).
+
+        Args:
+            blocks: Each shard's uint8 (N/S, H, W, 3) block, on its device.
+            lm: (S·C, 5, 2) float32 landmarks, row ``s·C + p`` the face
+                shard ``s`` warps at slot ``p`` (padding slots carry the
+                target template: an identity fit).
+            local_idx: (S·C,) int32 image row within each shard's block.
+            window: Optional (top, left, height, width) every face samples
+                inside.
+
+        Returns:
+            One (uint8 crops (C, Ho, Wo, 3), bool ok (C,)) pair a shard, on
+            its device.
+        """
+        c = len(local_idx) // len(blocks)
+        outs = []
+        for s, block in enumerate(blocks):
+            dev = block.device
+            mats, ok = self._estimate(to_device(lm[s * c : (s + 1) * c], dev, np.float32))
+            idx = to_device(local_idx[s * c : (s + 1) * c], dev, np.int32)
+            win = None
+            if window is not None:
+                win = to_device(window, dev, np.int32)[None].expand(c, 4).contiguous()
+            outs.append((warp_affine_u8(block, mats, idx, self.output_size, self.border_mode,
+                                        win), ok))
+        return outs
+
+    @staticmethod
+    def _gather_rows_sharded(blocks, local_idx: np.ndarray) -> list:
+        """Shard-local row gather: block s selects its rows ``local_idx[s·C :
+        (s+1)·C]`` (JAX ``_gather_rows_sharded``); no row crosses shards."""
+        c = len(local_idx) // len(blocks)
+        return [block.index_select(0, to_device(local_idx[s * c : (s + 1) * c], block.device,
+                                                np.int64))
+                for s, block in enumerate(blocks)]
+
+    def _crop_rows_mesh(self, blocks, lm: np.ndarray, img_shard, img_local, window, pack: bool,
+                        crops_out: np.ndarray, ok_out: np.ndarray, out_pos: np.ndarray):
+        """Warps faces out of a sharded batch, shard-locally: the mesh's
+        :meth:`_crop_selected_chunked` (JAX ``_crop_rows_mesh``).
+
+        Faces are grouped by their image's shard in chunks of
+        ``max_warp_chunk // S`` faces a shard (:func:`partition_by_shard`),
+        each chunk is warped by :meth:`_crop_local_sharded`, and every
+        shard's host rows land in face order.
+
+        Args:
+            blocks: Each shard's uint8 source block (originals, interim or
+                enhanced interim), on its device.
+            lm: (F, 5, 2) float32 landmarks in ``blocks``' coordinates
+                (callers apply any interim scale).
+            img_shard / img_local: (F,) owning shard and local image row of
+                each face.
+            window: Optional (top, left, height, width) sampling window.
+            pack: Fetch the crops as packed 4:2:0 rows.
+            crops_out / ok_out: Host crops and ok mask written at
+                ``out_pos`` (F,), the faces' rows there.
+        """
+        s = len(blocks)
+        cf = max(1, self.max_warp_chunk // s)
+        for sel, req, rows in partition_by_shard(img_shard, img_local, s, cf):
+            c = len(sel) // s
+            lm_rows = np.tile(self.target[None], (len(sel), 1, 1))
+            lm_rows[rows] = lm[req]
+            with self._stage("fit_warp"):
+                outs = self._crop_local_sharded(blocks, lm_rows, sel, window)
+            with self._stage("to_host"):
+                host = to_host((rgb_to_yuv420(crops) if pack else crops, ok)
+                               for crops, ok in outs)
+                # Shard i's faces fill its leading slots; each lands in its
+                # output row straight from the pinned buffer (one host copy).
+                for i, (crops, ok) in enumerate(host):
+                    mine = req[rows // c == i]
+                    crops_out[out_pos[mine]] = crops[: len(mine)]
+                    ok_out[out_pos[mine]] = ok[: len(mine)]
+
+    def _finish_enhanced_mesh(self, blocks, interims, face_lm, indices, interim_hw,
+                              valid_n: int, pack: bool):
+        """Gate → super-resolution → crop on a mesh: the mesh side of the
+        JAX ``_finish_enhanced`` (``pipeline.py:745-782``).
+
+        Faces of non-gated images warp shard-locally from the originals (or
+        the interim under ``crop_source="interim"``); gated images go
+        through :meth:`_finish_gated_mesh`.  Returns host (crops,
+        landmarks, indices).
+        """
+        n_loc = blocks[0].shape[0]
+        scale, win, gated, is_gated = self._gate(face_lm, indices, blocks[0].shape[1:3],
+                                                 interim_hw, valid_n)
+        crops = np.empty((len(indices),) + self._empty_crops(pack).shape[1:], np.uint8)
+        ok = np.zeros(len(indices), bool)
+        plain = np.nonzero(~is_gated)[0]
+        if len(plain):
+            img = indices[plain]
+            if self.crop_source == "interim":
+                self._crop_rows_mesh(interims, face_lm[plain] * np.float32(scale),
+                                       img // n_loc, img % n_loc, win, pack, crops, ok, plain)
+            else:
+                self._crop_rows_mesh(blocks, face_lm[plain], img // n_loc, img % n_loc,
+                                       None, pack, crops, ok, plain)
+        gated_pos = np.nonzero(is_gated)[0]
+        if len(gated_pos):
+            self._finish_gated_mesh(interims, face_lm, indices, gated, gated_pos, scale, win,
+                                    pack, crops, ok)
+        return crops[ok], face_lm[ok], indices[ok]
+
+    def _finish_gated_mesh(self, interims, face_lm, indices, gated, gated_pos, scale: float,
+                           window, pack: bool, crops_all: np.ndarray, ok_all: np.ndarray):
+        """Gate → SR → crop of the gated images on a mesh, shard-locally
+        (JAX ``_finish_gated_mesh``, ``pipeline.py:842-915``).
+
+        Images shard contiguously, so each shard gathers its own gated
+        interim rows (:meth:`_gather_rows_sharded`) in chunks of
+        ``enh_batch_size // S`` a shard (:func:`partition_rows_by_shard`),
+        super-resolves them with its replica
+        (``RRDBNet.enhance_shards``) and warps its own faces from its
+        enhanced block inside the interim window.  Results land in
+        ``crops_all``/``ok_all`` at ``gated_pos``.
+        """
+        s = len(interims)
+        n_pad = s * interims[0].shape[0]
+        cg = max(1, self.enh.enh_batch_size // s)
+        chunks = partition_rows_by_shard(gated, n_pad, s, cg)
+        # Gated image → (chunk, shard, slot) in that chunk's SR output.
+        img_loc: dict[int, tuple[int, int, int]] = {}
+        for ci, (sel, req, rows) in enumerate(chunks):
+            c = len(sel) // s
+            for j, r in zip(req, rows):
+                img_loc[int(gated[j])] = (ci, int(r // c), int(r % c))
+        loc = np.asarray([img_loc[int(indices[p])] for p in gated_pos], np.int64).reshape(-1, 3)
+        # The single-device path's landmark scaling, so a one-device mesh
+        # fits the same f32 landmarks.
+        lm_interim = (face_lm[gated_pos] * scale).astype(np.float32)
+        for ci, (sel, _req, _rows) in enumerate(chunks):
+            with self._stage("enhance"):
+                enhanced = self.enh.enhance_shards(self._gather_rows_sharded(interims, sel))
+            mine = np.nonzero(loc[:, 0] == ci)[0]
+            self._crop_rows_mesh(enhanced, lm_interim[mine], loc[mine, 1], loc[mine, 2],
+                                   window, pack, crops_all, ok_all, gated_pos[mine])
+
+    def _detect_only_mesh_async(self, images, ih: int, iw: int, valid_n: int, packed_hw):
+        """:meth:`detect_only_async` on a mesh: the detect pass on every
+        shard, each shard's host copies started before returning
+        (JAX ``pipeline.py:1187-1192``)."""
+        blocks, valid_n = self._mesh_upload(images, valid_n, packed_hw)
+
+        def dispatch(args):
+            with f32_precision():  # once around every shard's pass
+                outs = [self._detect_trace(block, ih, iw, args, net)[:3]
+                        for block, net in zip(blocks, self.det.replicas())]
+            return outs, [out[2] for out in outs]
+
+        args = self.det._detect_args()
+        outs, _caps = dispatch(args)
+        started = [to_host_async(out) for out in outs]
+        return {
+            "out": [host for host, _event in started],
+            "event": [event for _host, event in started],
+            "args": args,
+            "dispatch": dispatch,
+            "n_anchors": num_anchors(ih, iw),
+            "valid_n": valid_n,
+            "n": len(blocks) * blocks[0].shape[0],
+        }

@@ -6,7 +6,9 @@ computes in float32, as the JAX package does off the TPU
 convolutions (and, when a caller asks, CUDA matmuls) run in TF32 by
 default; :func:`f32_precision` turns both off around the package's own work
 and restores the caller's settings after it.  :func:`to_device` moves host
-data to the card without making the host wait for the card.
+data to the card without making the host wait for the card, :func:`to_host_async` and
+:func:`to_host` bring results back the same way, each on the card that
+holds them.
 """
 
 from __future__ import annotations
@@ -57,6 +59,43 @@ def to_device(values, device: torch.device, dtype=None) -> torch.Tensor:
     pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
     pinned.copy_(host)
     return pinned.to(device, non_blocking=True)
+
+
+def to_host_async(tensors) -> tuple[tuple[torch.Tensor, ...], "torch.cuda.Event | None"]:
+    """Starts device→host copies of ``tensors``; returns (host tensors, event).
+
+    On a CUDA device the copies go into pinned buffers, enqueued with
+    ``non_blocking=True`` on the current stream of the tensors' own card
+    (the first tensor's; all must share it), and the returned event is
+    recorded on that stream, after them: waiting on it waits for these
+    copies whatever the current device is.  CPU tensors come back as they
+    are, with no event.
+    """
+    device = tensors[0].device
+    if device.type != "cuda":
+        return tuple(tensors), None
+    stream = torch.cuda.current_stream(device)
+    host = []
+    for t in tensors:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        host.append(buf)
+    event = torch.cuda.Event()
+    event.record(stream)
+    return tuple(host), event
+
+
+def to_host(shard_outputs) -> list[tuple[np.ndarray, ...]]:
+    """Host arrays of each shard's tuple of tensors, in order.
+
+    Every shard's copies are started (:func:`to_host_async`) before the
+    host waits on any of them, so S cards finish their work side by side.
+    """
+    started = [to_host_async(tensors) for tensors in shard_outputs]
+    for _host, event in started:
+        if event is not None:
+            event.synchronize()
+    return [tuple(t.numpy() for t in host) for host, _event in started]
 
 
 # The TF32 switches are process-wide, and worker threads of one directory

@@ -63,9 +63,11 @@ def test_default_device_raises_without_cuda():
         face_crop_plus_tpu_torch.Cropper()
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(mesh=[torch.device("cpu")] * 2)])
 def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="meshes"):
+    """Meshes are ported; a ``mesh`` that is not the port's ``Mesh`` (a JAX
+    mesh, a bare device list) raises ``TypeError``."""
+    with pytest.raises(TypeError, match="Mesh"):
         face_crop_plus_tpu_torch.Cropper(device="cpu", **kw)
 
 
