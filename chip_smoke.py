@@ -201,10 +201,34 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    cards or more: (a)'s and (b)'s checks over ``make_mesh()`` (every card;
    ±1), and ``Cropper(device="cuda:{n-1}")`` bitwise equal to cuda:0;
    with one card a line says (d) did not run.  The phase's wall time.
-4. The ``kernels`` JSON line (phase 5's to 10's launches beside the
+11. The weights' host path and the package surface, phase 3's settings
+   (1024² interim, 256² crops, batch 16, "largest") with phase 6's
+   groups.  (a) Phase 5's tamed detector and phase 6's tamed parser
+   weights written as reference-form ``.pth`` checkpoints (unfolded BN,
+   OIHW) under the released filenames in a "server" directory; with an
+   empty ``FCPT_CACHE_DIR`` and ``FCPT_WEIGHTS_URL`` a ``file://`` root to
+   it, ``Cropper(device="cuda", ...)`` fetches both, converts them and
+   caches each ``.npz``: the networks' weights are the checkpoints',
+   bitwise; 3 of phase 3's requests are bitwise equal (crops, indices,
+   groups) to a Cropper given the same weights by ``load_state_dict``;
+   the construction's time with the fetch and conversion beside one that
+   reads the cache.  (b) ``python -m face_crop_plus_tpu_torch.convert
+   --verify`` on each checkpoint (two processes at once): exit 0, archives
+   equal to (a)'s cache array for array.  (c) One request under
+   ``utils.profiling.trace``: the Chrome trace it writes holds
+   ``nms_mask_kernel``, ``nms_scan_kernel`` and ``warp_affine_u8_kernel``
+   events as many times as the wrappers' counters launched them; the
+   trace's size and the three kernels' device µs.  (d) The ``models``,
+   ``ops`` and ``utils`` re-exports import; ``as_device`` puts phase 3's
+   16×218×178 batch on the card as float32 NHWC and ``as_numpy`` brings it
+   back bitwise; ``host_speed_probe()`` with the codec that served it (a
+   host number).  The fetch is on only inside (a): the script sets
+   ``FCPT_NO_DOWNLOAD=1`` for every other phase and subprocess.  The
+   phase's wall time.
+4. The ``kernels`` JSON line (phase 5's to 11's launches beside the
    others), the card line, and the ``ok`` line last.
 
-Phases 3-7 and 9-10 run with ``FCPT_HOST_CROP=0``: they hold the device path,
+Phases 3-7 and 9-11 run with ``FCPT_HOST_CROP=0``: they hold the device path,
 which "auto" gives on a card, in the CPU rehearsal too.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
@@ -218,6 +242,7 @@ import argparse
 import contextlib
 import json
 import os
+import pathlib
 import shutil
 import socket
 import subprocess
@@ -992,17 +1017,6 @@ def write_directory(path, n_uniform, uniform_hw, ragged_hw, seed=5):
     return sorted(readable)
 
 
-def write_npz(path, name, state_dict):
-    """A state dict as the ``<name>.npz`` both packages read (JAX layout:
-    HWIO conv kernels, folded BN)."""
-    os.makedirs(path, exist_ok=True)
-    arrays = {}
-    for key, val in state_dict.items():
-        val = val.cpu().numpy()
-        arrays[key] = np.transpose(val, (2, 3, 1, 0)) if val.ndim == 4 else val
-    np.savez(os.path.join(path, f"{name}.npz"), **arrays)
-
-
 def check_tree(out_dir, expected, out_size, what):
     """Names exactly ``expected``; every file decodes to out_size² × 3."""
     from face_crop_plus_tpu_torch.utils.io import imread_rgb
@@ -1104,6 +1118,7 @@ def phase5_directory(device, card, rehearse):
     from face_crop_plus_tpu_torch import Cropper
     from face_crop_plus_tpu_torch import cropper as cropper_mod
     from face_crop_plus_tpu_torch.models.detection import RetinaFaceNet
+    from face_crop_plus_tpu_torch.models.weights import save_npz, to_jax_params
     from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
     from face_crop_plus_tpu_torch.utils.io import codecs, imread_rgb
@@ -1130,7 +1145,7 @@ def phase5_directory(device, card, rehearse):
 
     # (a) the CLI, in a process of its own.  -dt 0 keeps every candidate of
     # the tamed detector (a negative threshold switches detection off).
-    write_npz(wdir, "retinaface", tamed_state_dict(RetinaFaceNet()))
+    save_npz(to_jax_params(tamed_state_dict(RetinaFaceNet())), os.path.join(wdir, "retinaface.npz"))
     cli_out = os.path.join(work, "cli")
     cmd = [sys.executable, "-m", "face_crop_plus_tpu_torch", "-i", src, "-o", cli_out,
            "-r", str(resize), "-s", str(out), "-dt", "0", "-b", str(bs), "-w", wdir]
@@ -1438,6 +1453,7 @@ def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
     passes, and the numbers the kernels line carries.
     """
     from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.models.weights import save_npz, to_jax_params
     from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
     from face_crop_plus_tpu_torch.utils.profiling import PipelineStats
@@ -1523,7 +1539,7 @@ def phase6_parsing(batches, p3_fps, p5, device, card, rehearse):
 
     # (c) process_dir with groups over phase 5's directory.
     src, readable, kw = p5["src"], p5["readable"], dict(p5["kw"], **groups_kw)
-    write_npz(p5["wdir"], "bisenet", tamed_parser_state_dict(par.net))
+    save_npz(to_jax_params(tamed_parser_state_dict(par.net)), os.path.join(p5["wdir"], "bisenet.npz"))
     del par
     cd = Cropper(device=str(device), strategy="largest", **kw)
     cd.par_model.attr_join_by_and = False
@@ -1735,6 +1751,7 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
     from face_crop_plus_tpu_torch import pipeline
     from face_crop_plus_tpu_torch.models import enhancement as enh_mod
     from face_crop_plus_tpu_torch.models.enhancement import RRDBNet, RRDBNetwork
+    from face_crop_plus_tpu_torch.models.weights import save_npz, to_jax_params
     from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
     from face_crop_plus_tpu_torch.ops.warp import to_uint8
@@ -1911,7 +1928,7 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
     # (d) process_dir with enh_threshold over phase 5's directory.
     src, readable, wdir = p5["src"], p5["readable"], p5["wdir"]
     # The full network's tamed weights, as the CLI of (e) reads them.
-    write_npz(wdir, "rrdb", tamed_rrdb_state_dict(RRDBNetwork()))
+    save_npz(to_jax_params(tamed_rrdb_state_dict(RRDBNetwork())), os.path.join(wdir, "rrdb.npz"))
     cd = Cropper(device=str(device), strategy="largest", enh_threshold=-np.inf, **p5["kw"])
     tame_enhancer(cd.enh_model, blocks)
     seen = []
@@ -3166,6 +3183,235 @@ def phase10_mesh(batches, p3, p5, device, card, rehearse):
     return dict(launches={k: tuple(v) for k, v in launches.items()}, fps=rates, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the weights' host path and the package surface
+# ---------------------------------------------------------------------------
+
+
+def reference_pth(state_dict) -> dict:
+    """A folded state dict in the form of the reference's checkpoints: each
+    BatchNorm unfolded (weight = scale, bias, running_mean 0, running_var
+    1 − 1e-5, num_batches_tracked; folding it back gives the same f32
+    bits), conv kernels OIHW as they are."""
+    bn = {k[: -len(".scale")] for k in state_dict if k.endswith(".scale")}
+    out = {}
+    for key, val in state_dict.items():
+        prefix, _, leaf = key.rpartition(".")
+        if prefix not in bn:
+            out[key] = val.clone()
+        elif leaf == "scale":
+            out[f"{prefix}.weight"] = val.clone()
+            out[f"{prefix}.bias"] = state_dict[f"{prefix}.bias"].clone()
+            out[f"{prefix}.running_mean"] = torch.zeros_like(val)
+            out[f"{prefix}.running_var"] = torch.full_like(val, 1 - 1e-5)
+            out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+@contextlib.contextmanager
+def scoped_env(**values):
+    """Environment variables set for a block and restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_archive(path_a, path_b) -> bool:
+    """Two ``.npz`` archives with the same keys in the same order, dtypes
+    and bits."""
+    from face_crop_plus_tpu_torch.models.weights import load_npz
+
+    a, b = load_npz(path_a), load_npz(path_b)
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+#: The kernels the trace must hold, by the name ``nvcc`` gives them; the
+#: launch counter that counts each (one NMS call launches both passes).
+TRACED_KERNELS = {"nms_mask_kernel": "nms", "nms_scan_kernel": "nms",
+                  "warp_affine_u8_kernel": "warp"}
+
+
+def trace_kernels(trace_dir) -> tuple[int, dict, int]:
+    """(bytes, {kernel: (events, device µs)}, CPU op events) of the one
+    Chrome trace ``trace`` wrote into ``trace_dir``."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise SystemExit(f"FAIL: (c) expected one Chrome trace in {trace_dir}, found {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    found = {}
+    for name in TRACED_KERNELS:
+        hits = [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+        found[name] = (len(hits), sum(float(e.get("dur", 0.0)) for e in hits))
+    cpu_ops = sum(1 for e in events if e.get("cat") == "cpu_op")
+    return os.path.getsize(path), found, cpu_ops
+
+
+def phase11_weights_surface(batches, device, card, rehearse):
+    """The weights' host path and the package surface; see the module
+    docstring.  Returns each sub-phase's (K1, warp) launches for the
+    kernels line."""
+    from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.models.detection import RetinaFaceNet
+    from face_crop_plus_tpu_torch.models.parsing import BiSeNetNet
+    from face_crop_plus_tpu_torch.models.weights import PTH_FILENAMES
+    from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.utils.io import codecs
+    from face_crop_plus_tpu_torch.utils.profiling import host_speed_probe, trace
+
+    t_phase = time.perf_counter()
+    n = batches[0].shape[0]
+    out, resize = (32, 64) if rehearse else (256, 1024)
+    work = os.path.join(ROOT, "face_crop_plus_tpu_torch", "_build", "phase11")
+    shutil.rmtree(work, ignore_errors=True)
+    server, cache = os.path.join(work, "server"), os.path.join(work, "cache")
+    os.makedirs(server)
+    tamed = {"retinaface": tamed_state_dict(RetinaFaceNet()),
+             "bisenet": tamed_parser_state_dict(BiSeNetNet())}
+    for model, sd in tamed.items():
+        torch.save(reference_pth(sd), os.path.join(server, PTH_FILENAMES[model]))
+    kw = dict(output_size=out, resize_size=resize, strategy="largest", det_threshold=-1.0,
+              batch_size=n, attr_groups=ATTR_GROUPS, mask_groups=MASK_GROUPS)
+    launches = {}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # (a) fetch and convert into an empty cache, then read the cache.
+    with scoped_env(FCPT_NO_DOWNLOAD="0", FCPT_CACHE_DIR=cache,
+                    FCPT_WEIGHTS_URL=pathlib.Path(server).as_uri() + "/"):
+        t0 = time.perf_counter()
+        fetched = Cropper(device=str(device), **kw)
+        sync()
+        fetch_s = time.perf_counter() - t0
+        cached_files = sorted(os.listdir(cache))
+        t0 = time.perf_counter()
+        again = Cropper(device=str(device), **kw)
+        sync()
+        cached_s = time.perf_counter() - t0
+    want = sorted([PTH_FILENAMES[m] for m in tamed] + [f"{m}.npz" for m in tamed])
+    log(f"  [{card}] (a) Cropper(device={str(device)!r}, phase 3's settings, parsing) with "
+        f"an empty FCPT_CACHE_DIR and a file:// root: {fetch_s:.6f} s with the fetch and "
+        f"conversion; {cached_s:.6f} s reading the cached .npz; cache {cached_files}")
+    if cached_files != want:
+        raise SystemExit(f"FAIL: (a) the cache holds {cached_files}, expected {want}")
+    for c in (fetched, again):
+        if not (c.det_model.pretrained and c.par_model.pretrained):
+            raise SystemExit("FAIL: (a) a model fell back to random weights")
+        for net, model in ((c.det_model.net, "retinaface"), (c.par_model.net, "bisenet")):
+            got = net.state_dict()
+            if set(got) != set(tamed[model]) or not all(
+                    torch.equal(got[k].cpu(), v) for k, v in tamed[model].items()):
+                raise SystemExit(f"FAIL: (a) the fetched {model} weights differ from the "
+                                 "checkpoint's")
+    del again
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random init before the weights are loaded
+        ref = Cropper(device=str(device), **kw)
+    ref.det_model.net.load_state_dict(tamed["retinaface"])
+    ref.par_model.net.load_state_dict(tamed["bisenet"])
+    nms_kern.launches = warp_kern.launches = 0
+    for r, batch in enumerate(batches[:3]):
+        a, b = fetched.process_images(batch), ref.process_images(batch)
+        if a[0].shape != (n, out, out, 3) or not same_result(a, b):
+            raise SystemExit(f"FAIL: (a) request {r}: the fetched weights' result differs "
+                             "from load_state_dict's")
+    launches["weights"] = (nms_kern.launches, warp_kern.launches)
+    del ref
+    log(f"  [{card}] (a) 3 requests: crops, indices and groups bitwise equal to a Cropper "
+        f"given the same weights by load_state_dict; (K1, warp) launches {launches['weights']}")
+    if not rehearse and min(launches["weights"]) < 1:
+        raise SystemExit("FAIL: (a) a kernel did not launch")
+
+    # (b) the converter CLI, one process a checkpoint, both at once.
+    conv = os.path.join(work, "convert")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for model in tamed:
+            procs[model] = subprocess.Popen(
+                [sys.executable, "-m", "face_crop_plus_tpu_torch.convert", "--pth",
+                 os.path.join(server, PTH_FILENAMES[model]), "--verify", "--out",
+                 os.path.join(conv, model)], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for model, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0 or "verify OK" not in stdout:
+                raise SystemExit(f"FAIL: (b) convert --verify of {model} exited "
+                                 f"{proc.returncode}:\n{stdout[-2000:]}{stderr[-2000:]}")
+            if not same_archive(os.path.join(conv, f"{model}.npz"),
+                                os.path.join(cache, f"{model}.npz")):
+                raise SystemExit(f"FAIL: (b) the CLI's {model}.npz differs from the cache's")
+            log(f"  (b) {model}: {stdout.strip().splitlines()[1]}; its archive equals (a)'s "
+                "cache array for array")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"  (b) python -m face_crop_plus_tpu_torch.convert --verify, 2 processes: "
+        f"{time.perf_counter() - t0:.3f} s wall")
+
+    # (c) one request under trace().
+    trace_dir = os.path.join(work, "trace")
+    nms_kern.launches = warp_kern.launches = 0
+    with trace(trace_dir):
+        fetched.process_images(batches[3])
+        sync()
+    launches["trace"] = (nms_kern.launches, warp_kern.launches)
+    size, found, cpu_ops = trace_kernels(trace_dir)
+    counters = {"nms": nms_kern.launches, "warp": warp_kern.launches}
+    log(f"  [{card}] (c) trace of one request: {size} B, {cpu_ops} CPU op events; "
+        + ", ".join(f"{k} x{c} {us:.3f} us" for k, (c, us) in found.items())
+        + f"; counters (K1, warp) {launches['trace']}")
+    if cpu_ops == 0 or any(found[k][0] != counters[v] for k, v in TRACED_KERNELS.items()):
+        raise SystemExit("FAIL: (c) the trace's kernel events differ from the launch counters")
+    if not rehearse and min(launches["trace"]) < 1:
+        raise SystemExit("FAIL: (c) a kernel did not launch under the trace")
+    del fetched
+
+    # (d) the package surface, as_device / as_numpy, the host probe.
+    from face_crop_plus_tpu_torch import ops as ops_pkg
+    from face_crop_plus_tpu_torch import utils as utils_pkg
+    from face_crop_plus_tpu_torch.models import BiSeNet, RetinaFace, RRDBNet  # noqa: F401
+
+    names = [getattr(pkg, name) for pkg in (ops_pkg, utils_pkg) for name in pkg.__all__]
+    host = batches[0]
+    dev = utils_pkg.as_device(host, "cpu" if rehearse else None)  # None: the card
+    back = utils_pkg.as_numpy(dev)
+    log(f"  [{card}] (d) {len(names)} ops/utils names and the three models import; "
+        f"as_device: {tuple(dev.shape)} {dev.dtype} on {dev.device}; as_numpy back: "
+        f"{back.dtype}, bitwise {np.array_equal(back, host)}")
+    if (dev.dtype != torch.float32 or dev.device.type != device.type
+            or tuple(dev.shape) != host.shape or back.dtype != np.uint8
+            or not np.array_equal(back, host)):
+        raise SystemExit("FAIL: (d) as_device / as_numpy")
+    t0 = time.perf_counter()
+    rate = host_speed_probe()
+    have = codecs()  # imread_rgb and imwrite take cv2 where it is installed, else PIL
+    codec = f"cv2 {have['cv2']}" if have["cv2"] else f"PIL {have['PIL']}"
+    log(f"  (d) host_speed_probe(): {rate} round trips/s of a 218x178 JPEG through {codec} "
+        f"(a host number), {time.perf_counter() - t0:.3f} s")
+    if rate is None or rate <= 0:
+        raise SystemExit("FAIL: (d) host_speed_probe returned no rate")
+    shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 11 wall time {wall:.3f} s")
+    return dict(launches=launches, fetch_s=fetch_s, cached_s=cached_s, wall=wall)
+
+
 def read_rgb(root, name):
     from face_crop_plus_tpu_torch.utils.io import imread_rgb
 
@@ -3184,7 +3430,7 @@ def _rows(timings: dict) -> dict:
 
 
 def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, p9,
-             p10) -> dict:
+             p10, p11) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -3203,7 +3449,8 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, 
         "launches": launches_largest + launches_all + p5["warp"] + p6["warp"] + p6["dir_warp"]
         + p7["warp"] + p7["dir_warp"] + sum(v[1] for v in p8["launches"].values())
         + sum(v[1] for v in p9["launches"].values())
-        + sum(v[1] for v in p10["launches"].values()),
+        + sum(v[1] for v in p10["launches"].values())
+        + sum(v[1] for v in p11["launches"].values()),
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
@@ -3215,6 +3462,7 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, 
         **{f"launches_{k}": v[1] for k, v in p8["launches"].items()},
         **{f"launches_{k}": v[1] for k, v in p9["launches"].items()},
         **{f"launches_{k}": v[1] for k, v in p10["launches"].items()},
+        **{f"launches_{k}": v[1] for k, v in p11["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -3260,6 +3508,10 @@ def main() -> int:
                     help="run the control flow on the CPU at tiny sizes")
     opts = ap.parse_args()
     rehearse = opts.rehearse_cpu
+    # Look for no checkpoint on the network: the card's machine has none,
+    # and the subprocess phases inherit this (phase 11 fetches from a
+    # file:// root in its own scope).
+    os.environ.setdefault("FCPT_NO_DOWNLOAD", "1")
 
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -3454,6 +3706,12 @@ def main() -> int:
     p10 = phase10_mesh(batches, {"fps": fps, "peak": peak}, p5, device, card, rehearse)
     shutil.rmtree(p5["work"], ignore_errors=True)
 
+    # -- phase 11 ----------------------------------------------------------
+    log("phase 11: the weights' host path and the package surface: checkpoints fetched from "
+        "a file:// root, converted and cached; the convert CLI; one request under trace(); "
+        "the re-exports, as_device / as_numpy, host_speed_probe")
+    p11 = phase11_weights_surface(batches, device, card, rehearse)
+
     # -- phase 4 -----------------------------------------------------------
     t_main = timings[max(ks)]
     t_256 = timings.get(256, t_main)
@@ -3466,7 +3724,8 @@ def main() -> int:
         "launches": main_launches + all_nms + p5["nms"] + p6["nms"] + p6["dir_nms"]
         + p7["nms"] + p7["dir_nms"] + sum(v[0] for v in p8["launches"].values())
         + sum(v[0] for v in p9["launches"].values())
-        + sum(v[0] for v in p10["launches"].values()),
+        + sum(v[0] for v in p10["launches"].values())
+        + sum(v[0] for v in p11["launches"].values()),
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
@@ -3478,6 +3737,7 @@ def main() -> int:
         **{f"launches_{k}": v[0] for k, v in p8["launches"].items()},
         **{f"launches_{k}": v[0] for k, v in p9["launches"].items()},
         **{f"launches_{k}": v[0] for k, v in p10["launches"].items()},
+        **{f"launches_{k}": v[0] for k, v in p11["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -3496,7 +3756,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5, p6, p7, p8, p9, p10),
+               all_warp, p5, p6, p7, p8, p9, p10, p11),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

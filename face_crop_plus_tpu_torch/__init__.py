@@ -8,4 +8,5 @@ card unless the caller passes ``device="cpu"``.
 
 from .cropper import Cropper
 
-__all__ = ["Cropper"]
+__version__ = "0.1.0"
+__all__ = ["Cropper", "__version__"]

@@ -19,8 +19,10 @@ where libjpeg is installed).  ``-si auto`` shards the directory over
 one process per GPU: it joins the process group a launcher configured
 (``torchrun``, or ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``
 set by hand; :mod:`.parallel`), takes the group's rank and size as the
-shard, and with ``-d auto`` runs on ``cuda:{LOCAL_RANK}``.  Meshes (one
-process driving several cards) are not ported.
+shard, and with ``-d auto`` runs on ``cuda:{LOCAL_RANK}``.  The CLI
+drives no mesh, as the JAX CLI drives none: a mesh (one process driving
+several cards) is an API feature, ``Cropper(mesh=make_mesh())``
+(:mod:`.parallel`).
 """
 
 from __future__ import annotations

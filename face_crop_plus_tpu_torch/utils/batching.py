@@ -1,8 +1,8 @@
 """Host-side ragged-image batching and bucketing helpers.
 
-Counterpart of ``face_crop_plus_tpu.utils.batching`` (``:28-110``,
-``pad_batch_to`` and ``next_pow2``).  :func:`as_batch` normalises ragged images into one
-(N, H, W, 3) interim batch on the host: an aspect-preserving resize
+Counterpart of ``face_crop_plus_tpu.utils.batching``, every function of
+it.  :func:`as_batch` normalises ragged images into one (N, H, W, 3)
+interim batch on the host: an aspect-preserving resize
 (``INTER_AREA`` to downscale, ``INTER_CUBIC`` to upscale; cv2 first, PIL
 second, as the JAX module does) and a centred pad.  The staged detect path
 runs on that batch.
@@ -16,11 +16,18 @@ and 203 ms for 16 (``chip_smoke.py``, phase 5 (e)).  So the port pads the
 fused path's groups to ``batch_size`` as the JAX package does, and the
 staged path's batches to the smallest measured good size that holds them
 (``cropper.STAGED_PAD_SIZES``: one image runs fastest alone).
+
+:func:`as_numpy` and :func:`as_device` move image batches between the host
+(uint8 NHWC numpy) and a device (float32 NHWC tensors); :func:`bucket_size`
+picks a padded batch size from a fixed set.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .device import resolve_device
 
 try:  # pragma: no cover - environment dependent
     import cv2
@@ -139,3 +146,49 @@ def pad_batch_to(batch: np.ndarray, n: int) -> tuple[np.ndarray, int]:
         return np.zeros((n,) + batch.shape[1:], batch.dtype), 0
     reps = np.repeat(batch[-1:], n - valid, axis=0)
     return np.concatenate([batch, reps], axis=0), valid
+
+
+def as_numpy(images) -> np.ndarray | list[np.ndarray]:
+    """Device image batch → host uint8 numpy (N, H, W, 3).
+
+    Counterpart of the JAX ``as_numpy`` (the reference's ``as_numpy``,
+    ``utils.py:170-196``): numpy inputs (or lists of them) pass through;
+    tensors on any device, or lists of them, become uint8 host arrays.
+    """
+    if isinstance(images, list):
+        if len(images) == 0 or isinstance(images[0], np.ndarray):
+            return images
+        return [x.detach().cpu().numpy().astype(np.uint8) for x in images]
+    if isinstance(images, np.ndarray):
+        return images
+    return images.detach().cpu().numpy().astype(np.uint8)
+
+
+def as_device(images, device=None):
+    """Host image batch → float32 NHWC tensor on ``device``.
+
+    Counterpart of the JAX ``as_device`` (the reference's ``as_tensor``,
+    ``utils.py:198-226``): numpy arrays (or ragged lists of them) become
+    float32 tensors on ``device``, which resolves as every entry point of
+    the port resolves it (None: the card); tensors, and lists of them,
+    pass through.
+    """
+    if isinstance(images, list):
+        if len(images) and not isinstance(images[0], np.ndarray):
+            return images
+        dev = resolve_device(device)
+        return [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in images]
+    if isinstance(images, np.ndarray):
+        return torch.as_tensor(images, dtype=torch.float32, device=resolve_device(device))
+    return images
+
+
+def bucket_size(n: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket >= n; beyond the largest bucket, the next multiple of
+    it (so ``pad_batch_to(batch, bucket_size(len(batch), buckets))`` always
+    succeeds while the number of distinct shapes stays bounded)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    top = buckets[-1]
+    return -(-n // top) * top

@@ -226,6 +226,9 @@ def test_pth_checkpoint_loads_like_jax(tmp_path, monkeypatch):
     expected = tw.from_jax_params(ref, net)
     for k, v in net.state_dict().items():
         assert torch.equal(v, expected[k]), k
+    # The conversion is cached next to the checkpoint, as the JAX package
+    # caches it, and read first from then on: drop it to read the new .pth.
+    (tmp_path / "bisenet.npz").unlink()
     # A checkpoint that lacks a key of the network is refused.
     sd.pop("ffm.conv1.weight")
     torch.save(sd, tmp_path / "bise_parser.pth")
