@@ -6,9 +6,10 @@
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
-0. Card identity (``nvidia-smi``), torch/CUDA versions, the precision the
-   package pins for its detector (f32: TF32 off inside the package only;
-   the script sets no global flag), and the host codecs: whether the
+0. Card identity (``nvidia-smi``), torch/CUDA versions, the precision
+   each model reports when built with its defaults (``compute_precision``:
+   float32, TF32 off inside the package only; the script sets no global
+   flag), and the host codecs: whether the
    native JPEG decoder built (else the compiler's message), cv2's and
    PIL's versions.
 1. Build the kernels from ``face_crop_plus_tpu_torch/csrc`` (greedy NMS
@@ -147,9 +148,11 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    every yield bitwise equal to the loop's, faces/s and request latency
    p50/p99 (from the generator pulling a batch to yielding its result),
    K1 and the warp launched once per request; the host time to return
-   from one dispatch (``FusedPipeline.process_async``) on an idle card, and
-   of its upload during the depth-2 stream, each under a tenth of the
-   network's ms (uploads go through pinned memory without waiting); the
+   from one dispatch (``FusedPipeline.process_async``) on an idle card
+   (the median of 9 dispatches, each after a synchronize; every sample
+   printed), and of its upload during the depth-2 stream (the median of
+   its dispatches), each under a tenth of the network's ms (uploads go
+   through pinned memory without waiting); the
    whole dispatch's host time in the stream beside a probe of the CUDA
    launch queue (how many launches the host enqueues behind a busy card
    before one blocks); 8 requests profiled at depth 2 beside 8 per-call
@@ -225,10 +228,29 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    host number).  The fetch is on only inside (a): the script sets
    ``FCPT_NO_DOWNLOAD=1`` for every other phase and subprocess.  The
    phase's wall time.
-4. The ``kernels`` JSON line (phase 5's to 11's launches beside the
+12. The models' ``compute_dtype``, bfloat16 against float32 at full
+   width, with phase 5's tamed detector, phase 6's tamed parser and
+   phase 7's tamed enhancer (23 RRDBs) on smooth batches.  (a)
+   ``FusedPipeline`` "largest" with ``RetinaFace(compute_dtype=...)``,
+   16×218×178 → 1024² → 256² crops: each network's median of 5 calls by
+   CUDA events, TFLOP/s of the multiply-adds counted by conv hooks
+   beside the f32 and the dense bf16 peaks; 5 requests each after a
+   warm-up (K1 and the warp once per request); one request's landmarks
+   (max and median px) and crops (levels), bf16 against f32; that bf16
+   request's K1 keep mask and warp crops bitwise equal to their plain
+   versions on the recorded inputs; one 1024² image of the card's bf16
+   network against the CPU's bf16 and f32, held to the test suite's
+   relative band by the mean (no farther from the CPU's bf16 than the
+   CPU's bf16 is from its f32; the largest and 99th-percentile
+   differences printed).  (b) ``BiSeNet.predict`` of (a)'s
+   16 bf16 crops at 512², each dtype: the median of 5 calls, TFLOP/s,
+   the share of labels equal.  (c) ``enhance_device`` of one 1024²
+   interim, each dtype: the median of 2 calls, TFLOP/s, peak device
+   memory, the output's level differences.  The phase's wall time.
+4. The ``kernels`` JSON line (phase 5's to 12's launches beside the
    others), the card line, and the ``ok`` line last.
 
-Phases 3-7 and 9-11 run with ``FCPT_HOST_CROP=0``: they hold the device path,
+Phases 3-7 and 9-12 run with ``FCPT_HOST_CROP=0``: they hold the device path,
 which "auto" gives on a card, in the CPU rehearsal too.
 
 The rehearsal runs every phase on the CPU at tiny sizes with the plain
@@ -1669,7 +1691,7 @@ def tame_enhancer(model, blocks: int):
     net = RRDBNetwork(blocks)
     net.load_state_dict(tamed_rrdb_state_dict(net))
     model.num_blocks = blocks
-    model.net = net.to(model.device).eval().requires_grad_(False)
+    model.net = net.to(model.device, model.compute_dtype).eval().requires_grad_(False)
     return model
 
 
@@ -2524,6 +2546,10 @@ def rate_line(label, results, lat, wall) -> str:
             f"{np.percentile(lat, 99) * 1e3:.6f} ms")
 
 
+#: Idle-card dispatches phase 9 (a) times; their median is held.
+IDLE_DISPATCHES = 9
+
+
 def phase9_serving(batches, p5, device, card, rehearse):
     """Serving and sharding; see the module docstring.
 
@@ -2550,13 +2576,19 @@ def phase9_serving(batches, p5, device, card, rehearse):
     c.process_images(reqs[1])
     c._fused.stage_timer = None
     network_ms = timer.ms["network"]
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handle = c._fused.process_async(c._pad_group(reqs[2]), c.resize_size)
-    idle_ms = (time.perf_counter() - t0) * 1e3
-    c._fused.process_finish(handle)
-    del handle
+    # The idle-card dispatch, timed IDLE_DISPATCHES times by the host clock
+    # (each after a synchronize, each finished before the next) and held
+    # by its median: one sample on a shared host can read twice another.
+    idle_samples = []
+    for _ in range(IDLE_DISPATCHES):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = c._fused.process_async(c._pad_group(reqs[2]), c.resize_size)
+        idle_samples.append((time.perf_counter() - t0) * 1e3)
+        c._fused.process_finish(handle)
+        del handle
+    idle_ms = float(np.median(idle_samples))
 
     ref, lat, wall, per_call = serve(c, reqs)
     log(f"  [{card}] (a) {rate_line('per-call process_images', ref, lat, wall)}; (K1, warp) "
@@ -2601,8 +2633,11 @@ def phase9_serving(batches, p5, device, card, rehearse):
     med = {k: float(np.median(v)) for k, v in host_ms.items()}
     top = {k: float(np.max(v)) for k, v in host_ms.items()}
     log(f"  [{card}] (a) host time to return from one dispatch (process_async: upload, "
-        f"detect, fit, warp and host copies enqueued): {idle_ms:.6f} ms on an idle card "
-        f"({idle_ms / network_ms:.6f} of the network's {network_ms:.6f} ms, stage timer, one "
+        f"detect, fit, warp and host copies enqueued) on an idle card, "
+        f"{len(idle_samples)} dispatches: "
+        + ", ".join(f"{v:.6f}" for v in idle_samples)
+        + f" ms; median {idle_ms:.6f} ms, max {max(idle_samples):.6f} ms (the median is "
+        f"{idle_ms / network_ms:.6f} of the network's {network_ms:.6f} ms, stage timer, one "
         f"request); during the depth-2 stream, {len(host_ms['process_async'])} dispatches: "
         f"the upload (_upload) median {med['_upload']:.6f} ms, max {top['_upload']:.6f} ms; "
         f"the whole dispatch median {med['process_async']:.6f} ms, max "
@@ -2613,8 +2648,9 @@ def phase9_serving(batches, p5, device, card, rehearse):
             f"one-element adds before a launch blocked it ({blocked_ms:.6f} ms); with batches "
             f"in flight a dispatch returns when the queue has room for its launches")
     if not rehearse and max(idle_ms, med["_upload"]) >= network_ms / 10:
-        raise SystemExit("FAIL: a dispatch or its upload blocks: a tenth of the network's "
-                         "time or more")
+        raise SystemExit("FAIL: a dispatch or its upload blocks: the median of the idle "
+                         "dispatches or of the stream's uploads takes a tenth of the "
+                         "network's time or more")
     if device.type == "cuda":
         k = 4 if rehearse else 8
         for label, fn in (("stream depth 2", lambda: list(c.process_images_stream(reqs[:k]))),
@@ -3412,6 +3448,278 @@ def phase11_weights_surface(batches, device, card, rehearse):
     return dict(launches=launches, fetch_s=fetch_s, cached_s=cached_s, wall=wall)
 
 
+#: H100 SXM published dense bfloat16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+#: Single calls phase 12 times for each dtype; the median is reported.
+DTYPE_REPS = 5
+
+
+def conv_macs(net, run) -> int:
+    """Multiply-adds of every convolution of ``net`` during ``run()``, from
+    the convolutions' output shapes (forward hooks)."""
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    total = [0]
+
+    def hook(m, _inp, out):
+        total[0] += out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in convs]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def single_ms(fn, device) -> float:
+    """One call's milliseconds: CUDA events around it on a card (after a
+    synchronize), the host clock elsewhere."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def median_ms(fn, device, reps: int = DTYPE_REPS) -> tuple[float, list]:
+    """(median, samples) of ``reps`` single calls after one warm-up."""
+    fn()
+    samples = [single_ms(fn, device) for _ in range(reps)]
+    return float(np.median(samples)), samples
+
+
+def dtype_line(what, ms, samples, flop, peak) -> str:
+    """A timing line: the median, every sample, TFLOP/s and the bound."""
+    return (f"{what}: median {ms:.6f} ms of " + ", ".join(f"{v:.6f}" for v in samples)
+            + f"; {flop / (ms * 1e-3) / 1e12:.6f} TFLOP/s of {flop / 1e12:.6f} TFLOP counted; "
+            f"bound {flop / peak * 1e3:.6f} ms at {peak / 1e12:.0f} TFLOP/s")
+
+
+def outputs_held(name, ours, ref_low, ref_f32) -> bool:
+    """The test suite's relative network band, by the mean: ``ours`` no
+    farther from ``ref_low`` (the CPU's bfloat16) than the CPU's bfloat16
+    output is from its float32 one.  The largest and the 99th-percentile
+    differences are printed beside it: the tests hold the largest too, on
+    a 64² input, but two bfloat16 runs' extremes grow with the output's
+    size (43,008 anchors at 1024² against 168 at 64²)."""
+    d = (ours.float() - ref_low.float()).abs().numpy()
+    j = (ref_low.float() - ref_f32.float()).abs().numpy()
+    ok = d.mean() <= j.mean()
+    log(f"    {name}: card bf16 vs CPU bf16 mean {d.mean():.6g} max {d.max():.6g} p99 "
+        f"{np.quantile(d, 0.99):.6g}; CPU bf16 vs CPU f32 mean {j.mean():.6g} max "
+        f"{j.max():.6g} p99 {np.quantile(j, 0.99):.6g}; held {ok}")
+    return ok
+
+
+def phase12_compute_dtype(device, card, rehearse):
+    """The models' ``compute_dtype``: bfloat16 against float32 at full
+    width; see the module docstring.
+
+    Returns the (K1, warp) launches of its float32 and bfloat16 requests.
+    """
+    from face_crop_plus_tpu_torch import Cropper, pipeline
+    from face_crop_plus_tpu_torch.models.detection import (
+        RetinaFace, preprocess, retinaface_forward,
+    )
+    from face_crop_plus_tpu_torch.models.enhancement import RRDBNet
+    from face_crop_plus_tpu_torch.models.parsing import BiSeNet
+    from face_crop_plus_tpu_torch.ops import nms as plain_nms
+    from face_crop_plus_tpu_torch.ops.cuda import nms as kern
+    from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
+    from face_crop_plus_tpu_torch.ops.warp import to_uint8, warp_affine_batch
+    from face_crop_plus_tpu_torch.pipeline import FusedPipeline, device_resize_pad
+    from face_crop_plus_tpu_torch.utils.device import compute_precision, f32_precision
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, src_hw, out, resize = (2, (40, 30), 32, 64) if rehearse else (16, (218, 178), 256, 1024)
+    blocks = 1 if rehearse else 23
+    rng = np.random.default_rng(12)
+    reqs = [smooth_batch(rng, (n, *src_hw, 3)) for _ in range(DTYPE_REPS + 1)]
+    launches = {}
+
+    # (a) the detector: phase 3's shapes, phase 5's tamed weights.
+    c = Cropper(device=str(device), output_size=out, resize_size=resize, strategy="largest",
+                det_threshold=-1.0, batch_size=n)
+    sd = tamed_state_dict(c.det_model.net)
+    dets = {f32: c.det_model,
+            bf16: RetinaFace(strategy="largest", vis=-1.0, device=device, compute_dtype=bf16)}
+    pipes = {f32: c._fused,
+             bf16: FusedPipeline(dets[bf16], c.landmarks_target, c.output_size, c.padding,
+                                 allow_skew=c.allow_skew, crop_source=c.crop_source)}
+    for det in dets.values():
+        det.net.load_state_dict(sd)
+        log(f"  (a) RetinaFace(compute_dtype={det.compute_dtype}): "
+            f"{json.dumps(compute_precision(det))}")
+    with torch.no_grad(), f32_precision():
+        interim, _, _ = device_resize_pad(torch.from_numpy(reqs[0]).to(device), c.resize_size)
+        x32 = preprocess(interim)
+    del interim
+    macs = conv_macs(dets[f32].net, lambda: retinaface_forward(dets[f32].net, x32))
+    net_ms = {}
+    for dt, det in dets.items():
+        x = x32.to(dt)
+        with torch.no_grad(), f32_precision():
+            net_ms[dt], samples = median_ms(lambda: retinaface_forward(det.net, x), device)
+        peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+        log(f"  [{card}] (a) " + dtype_line(f"RetinaFace network {dt}, {n}x{resize}x{resize}",
+                                             net_ms[dt], samples, 2 * macs, peak))
+        del x
+    log(f"  [{card}] (a) bf16 / f32 network time {net_ms[bf16] / net_ms[f32]:.6f}")
+
+    results, req_ms = {}, {}
+    recorded = {}
+    real_nms, real_warp = kern.greedy_nms_mask_cuda, pipeline.warp_affine_u8
+
+    def nms_spy(boxes, valid, threshold):
+        keep = real_nms(boxes, valid, threshold)
+        recorded.setdefault("nms", (boxes, valid, threshold, keep))
+        return keep
+
+    def warp_spy(*args, **kwargs):
+        crops = real_warp(*args, **kwargs)
+        recorded.setdefault("warp", (args, kwargs, crops))
+        return crops
+
+    for dt, pipe in pipes.items():
+        pipe.process(reqs[0], c.resize_size)  # warm-up: pre_topk grows to its ceiling
+        kern.launches = warp_kern.launches = 0
+        seconds = []
+        if dt == bf16:
+            kern.greedy_nms_mask_cuda, pipeline.warp_affine_u8 = nms_spy, warp_spy
+        try:
+            for r, batch in enumerate(reqs[1:]):
+                t0 = time.perf_counter()
+                res = pipe.process(batch, c.resize_size)
+                seconds.append((time.perf_counter() - t0) * 1e3)
+                if r == 0:
+                    results[dt] = res
+                    kern.greedy_nms_mask_cuda, pipeline.warp_affine_u8 = real_nms, real_warp
+        finally:
+            kern.greedy_nms_mask_cuda, pipeline.warp_affine_u8 = real_nms, real_warp
+        launches[f"compute_dtype_{str(dt).removeprefix('torch.')}"] = (kern.launches,
+                                                                       warp_kern.launches)
+        req_ms[dt] = float(np.median(seconds))
+        log(f"  [{card}] (a) FusedPipeline.process {dt}, {len(seconds)} requests after a "
+            f"warm-up (host clock, host copies included): median {req_ms[dt]:.6f} ms of "
+            + ", ".join(f"{v:.6f}" for v in seconds)
+            + f"; {n * len(seconds) / (sum(seconds) * 1e-3):.6f} faces/s; (K1, warp) "
+            f"launches {(kern.launches, warp_kern.launches)}")
+        if not rehearse and (kern.launches, warp_kern.launches) != (len(seconds),) * 2:
+            raise SystemExit(f"FAIL: {dt} requests: (K1, warp) launches "
+                             f"{(kern.launches, warp_kern.launches)}, expected one each per "
+                             f"request ({len(seconds)})")
+    (c32, lm32, i32), (c16, lm16, i16) = results[f32], results[bf16]
+    d_lm = np.abs(lm16 - lm32).reshape(len(lm16), -1).max(axis=1) if len(i16) == len(i32) else None
+    lv, share = level_diff(c16, c32) if c16.shape == c32.shape else (None, None)
+    log(f"  [{card}] (a) one request, bf16 against f32: indices equal "
+        f"{np.array_equal(i16, i32)}; landmarks max |diff| "
+        f"{float(d_lm.max()) if d_lm is not None else float('nan'):.6f} px, median "
+        f"{float(np.median(d_lm)) if d_lm is not None else float('nan'):.6f} px; crops max "
+        f"|diff| {lv} levels, differing share {share}, mean |diff| "
+        f"{float(np.abs(c16.astype(np.int16) - c32).mean()) if lv is not None else 0.0:.6f}")
+
+    if cuda:  # the kernels of the bf16 request against their plain versions
+        boxes, valid, threshold, keep = recorded["nms"]
+        plain_keep = plain_nms.greedy_nms_mask(plain_nms.iou_matrix_plus1(boxes), valid,
+                                               threshold)
+        args, kwargs, crops = recorded["warp"]
+        plain = to_uint8(warp_affine_batch(*args, **kwargs))
+        ok = _finite_rows(args[1])
+        warp_err = int((crops[ok].int() - plain[ok].int()).abs().max()) if int(ok.sum()) else 0
+        nms_same = torch.equal(keep, plain_keep)
+        log(f"  (a) the bf16 request's K1 keep mask ({tuple(keep.shape)}, boxes "
+            f"{boxes.dtype}) bitwise equal to plain: {nms_same}; its warp ({len(crops)} crops "
+            f"from {tuple(args[0].shape)} {args[0].dtype} sources) max |diff| against plain "
+            f"{warp_err}")
+        if not nms_same or warp_err:
+            raise SystemExit("FAIL: a kernel of the bf16 request differs from its plain version")
+    del recorded
+
+    # One image: the card's bf16 network against the port's bf16 on the CPU.
+    cpu = {dt: RetinaFace(strategy="largest", vis=-1.0, device="cpu", compute_dtype=dt)
+           for dt in (f32, bf16)}
+    for det in cpu.values():
+        det.net.load_state_dict(sd)
+    with torch.no_grad(), f32_precision():
+        x1 = x32[:1].cpu()
+        card_out = [t.cpu() for t in retinaface_forward(dets[bf16].net, x32[:1].to(bf16))]
+        cpu16 = retinaface_forward(cpu[bf16].net, x1.to(bf16))
+        cpu32 = retinaface_forward(cpu[f32].net, x1)
+    log(f"  (a) one {resize}² image, the card's bf16 network against the CPU's bf16 "
+        f"(the band of tests/test_torch_compute_dtype.py):")
+    held = [outputs_held(name, a, b, r) for name, a, b, r in
+            zip(("scores", "loc", "ldm"), card_out, cpu16, cpu32)]
+    if not all(held):
+        raise SystemExit("FAIL: the card's bf16 detector leaves the CPU's bf16 band")
+    del x32, x1, cpu, card_out, cpu16, cpu32, pipes, dets
+    crops16 = c16
+
+    # (b) the parser: 16 crops at 512², phase 6's tamed weights and groups.
+    groups_kw = dict(attr_groups=ATTR_GROUPS, mask_groups=MASK_GROUPS)
+    pars = {dt: BiSeNet(max_batch_size=n, device=device, compute_dtype=dt, **groups_kw)
+            for dt in (f32, bf16)}
+    psd = tamed_parser_state_dict(pars[f32].net)
+    conv_m, resize_m = parser_macs(pars[f32], n, out)
+    dev_crops = torch.from_numpy(crops16).to(device)
+    labels = {}
+    par_ms = {}
+    for dt, par in pars.items():
+        par.net.load_state_dict(psd)
+        log(f"  (b) BiSeNet(compute_dtype={dt}): {json.dumps(compute_precision(par))}")
+        par_ms[dt], samples = median_ms(lambda: par.predict(crops16), device)
+        peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+        log(f"  [{card}] (b) " + dtype_line(
+            f"BiSeNet.predict {dt}, {n} crops of {out}² at 512² (upload, network, argmax, "
+            "counts, masks, host copies)", par_ms[dt], samples, 2 * (conv_m + resize_m), peak))
+        with torch.no_grad():
+            labels[dt] = par._parse(dev_crops, out, out)[0].cpu().numpy()
+    agree = float((labels[bf16] == labels[f32]).mean())
+    log(f"  [{card}] (b) bf16 / f32 predict time {par_ms[bf16] / par_ms[f32]:.6f}; labels "
+        f"equal on {agree:.6f} of the pixels")
+    del pars, dev_crops
+
+    # (c) the enhancer: one 1024² interim, phase 7's tamed weights.
+    with torch.no_grad(), f32_precision():
+        interim, _, _ = device_resize_pad(torch.from_numpy(reqs[1][:1]).to(device), c.resize_size)
+    one = to_uint8(interim).contiguous()
+    del interim, c
+    enh_out, enh_ms = {}, {}
+    for dt in (f32, bf16):
+        enh = tame_enhancer(RRDBNet(device=device, num_blocks=blocks, compute_dtype=dt), blocks)
+        log(f"  (c) RRDBNet(compute_dtype={dt}): {json.dumps(compute_precision(enh))}")
+        if dt == f32:
+            pixels = one.shape[1] * one.shape[2]
+            flop = 2 * rrdb_macs_per_pixel(enh.net, device) * pixels
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        enh_ms[dt], samples = median_ms(lambda: enh.enhance_device(one), device, reps=2)
+        peak_mem = torch.cuda.max_memory_allocated() if cuda else 0
+        peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+        log(f"  [{card}] (c) " + dtype_line(
+            f"enhance_device {dt}, one {one.shape[1]}x{one.shape[2]} interim, {blocks} RRDBs",
+            enh_ms[dt], samples, flop, peak) + f"; peak device memory {peak_mem} B")
+        enh_out[dt] = enh.enhance_device(one).cpu().numpy()
+        del enh
+    lv, share = level_diff(enh_out[bf16], enh_out[f32])
+    log(f"  [{card}] (c) bf16 / f32 enhance time {enh_ms[bf16] / enh_ms[f32]:.6f}; output "
+        f"bf16 against f32: max |diff| {lv} levels, differing share {share:.6f}, mean |diff| "
+        f"{float(np.abs(enh_out[bf16].astype(np.int16) - enh_out[f32]).mean()):.6f}")
+    log(f"  phase 12 wall time {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches}
+
+
 def read_rgb(root, name):
     from face_crop_plus_tpu_torch.utils.io import imread_rgb
 
@@ -3430,7 +3738,7 @@ def _rows(timings: dict) -> dict:
 
 
 def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, p9,
-             p10, p11) -> dict:
+             p10, p11, p12) -> dict:
     """The ``kernels`` entry of warp_affine_u8 at phase 3b's chunk shape.
 
     One strategy-"all" chunk: 512 faces from the 16 original sources,
@@ -3450,7 +3758,8 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, 
         + p7["warp"] + p7["dir_warp"] + sum(v[1] for v in p8["launches"].values())
         + sum(v[1] for v in p9["launches"].values())
         + sum(v[1] for v in p10["launches"].values())
-        + sum(v[1] for v in p11["launches"].values()),
+        + sum(v[1] for v in p11["launches"].values())
+        + sum(v[1] for v in p12["launches"].values()),
         "launches_largest": launches_largest,
         "launches_all": launches_all,
         "launches_directory": p5["warp"],
@@ -3463,6 +3772,7 @@ def warp_row(wtimings, max_err, launches_largest, launches_all, p5, p6, p7, p8, 
         **{f"launches_{k}": v[1] for k, v in p9["launches"].items()},
         **{f"launches_{k}": v[1] for k, v in p10["launches"].items()},
         **{f"launches_{k}": v[1] for k, v in p11["launches"].items()},
+        **{f"launches_{k}": v[1] for k, v in p12["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t["ms"],
@@ -3547,8 +3857,16 @@ def main() -> int:
     from face_crop_plus_tpu_torch.utils.device import compute_precision
     from face_crop_plus_tpu_torch.utils.io import codecs
 
-    log(f"  detector precision (as the package pins it): {json.dumps(compute_precision())}; "
-        f"process-wide flags outside it: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+    from face_crop_plus_tpu_torch.models import BiSeNet, RetinaFace, RRDBNet
+
+    for model_cls in (RetinaFace, BiSeNet, RRDBNet):  # each model's default
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model = model_cls(device=device)
+        log(f"  {model_cls.__name__}() precision (as the package pins it): "
+            f"{json.dumps(compute_precision(model))}")
+        del model
+    log(f"  process-wide flags outside it: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     for name, status in codecs().items():
         log(f"  codec {name}: {status if status is not None else 'absent'}")
@@ -3712,6 +4030,12 @@ def main() -> int:
         "the re-exports, as_device / as_numpy, host_speed_probe")
     p11 = phase11_weights_surface(batches, device, card, rehearse)
 
+    # -- phase 12 ----------------------------------------------------------
+    log("phase 12: the models' compute_dtype: RetinaFace, BiSeNet and RRDBNet in bfloat16 "
+        "against float32 at full width; the bf16 request's kernels against plain; the card's "
+        "bf16 against the CPU's")
+    p12 = phase12_compute_dtype(device, card, rehearse)
+
     # -- phase 4 -----------------------------------------------------------
     t_main = timings[max(ks)]
     t_256 = timings.get(256, t_main)
@@ -3725,7 +4049,8 @@ def main() -> int:
         + p7["nms"] + p7["dir_nms"] + sum(v[0] for v in p8["launches"].values())
         + sum(v[0] for v in p9["launches"].values())
         + sum(v[0] for v in p10["launches"].values())
-        + sum(v[0] for v in p11["launches"].values()),
+        + sum(v[0] for v in p11["launches"].values())
+        + sum(v[0] for v in p12["launches"].values()),
         "launches_largest": main_launches,
         "launches_all": all_nms,
         "launches_directory": p5["nms"],
@@ -3738,6 +4063,7 @@ def main() -> int:
         **{f"launches_{k}": v[0] for k, v in p9["launches"].items()},
         **{f"launches_{k}": v[0] for k, v in p10["launches"].items()},
         **{f"launches_{k}": v[0] for k, v in p11["launches"].items()},
+        **{f"launches_{k}": v[0] for k, v in p12["launches"].items()},
         "max_abs_err": max_err,
         "bitwise_equal": max_err == 0,
         "ms": t_main["ms"],
@@ -3756,7 +4082,7 @@ def main() -> int:
         "plain_ms_k256": t_256["plain_ms"],
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
-               all_warp, p5, p6, p7, p8, p9, p10, p11),
+               all_warp, p5, p6, p7, p8, p9, p10, p11, p12),
         gather_row(gtimings, gather_launches)]}
     log(json.dumps(kernels))
     if rehearse:

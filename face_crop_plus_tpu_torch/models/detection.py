@@ -16,6 +16,13 @@ batch runs, and grown caps cost no recompile.
 On a mesh (``mesh=``, :mod:`..parallel.mesh`) every shard holds its own
 replica of the network and runs its block of the batch on its own card;
 the cap diagnostics of all shards feed one growth decision.
+
+The network computes in float32 unless its caller passes
+``compute_dtype=torch.bfloat16`` (or ``torch.float16``), as the JAX
+detector computes in f32 off the TPU and in its ``compute_dtype`` when
+given one.  Preprocessing and the anchor decode stay f32; the softmaxed
+scores are rounded to the compute dtype, as the JAX ones are, before the
+face selection reads them in f32.
 """
 
 from __future__ import annotations
@@ -31,7 +38,13 @@ from ..ops.nms import select_faces
 from ..ops.nn import FoldedBatchNorm, conv, leaky_relu, resize_nearest, softmax
 from ..utils.batching import next_pow2
 from ..parallel.mesh import Replicas, pad_to_multiple, shard_batch
-from ..utils.device import f32_precision, resolve_device, to_device, to_host
+from ..utils.device import (
+    f32_precision,
+    resolve_compute_dtype,
+    resolve_device,
+    to_device,
+    to_host,
+)
 from .backbones import ResNet50Features
 from .weights import load_or_init
 
@@ -224,9 +237,11 @@ class RetinaFace:
 
     Attributes mirror the JAX package: ``strategy``, ``vis_threshold``,
     ``nms_threshold``, ``variance``, ``max_faces``, ``pre_topk``,
-    ``auto_grow``; ``net`` is the :class:`RetinaFaceNet` on ``device``.
-    With a ``mesh`` the device is the mesh's first, and each shard runs a
-    replica of ``net`` (:meth:`replicas`).
+    ``auto_grow``; ``net`` is the :class:`RetinaFaceNet` on ``device``, its
+    weights in ``compute_dtype`` (:func:`..utils.device.resolve_compute_dtype`:
+    None gives float32 on every device).  With a ``mesh`` the device is the
+    mesh's first, and each shard runs a replica of ``net``
+    (:meth:`replicas`), in the same dtype.
     """
 
     #: Grow-on-demand ceiling for ``pre_topk``.
@@ -242,6 +257,7 @@ class RetinaFace:
         weights_dir: str | None = None,
         device=None,
         mesh=None,
+        compute_dtype=None,
     ):
         self.strategy = strategy
         self.vis_threshold = float(vis)
@@ -256,12 +272,14 @@ class RetinaFace:
         self._cap_warned = False
         self.mesh = mesh
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
 
-        # float32 throughout, as the JAX package computes off the TPU: the
-        # forward runs under f32_precision (TF32 off).
+        # float32 by default, as the JAX package computes off the TPU; the
+        # forward runs under f32_precision (TF32 off).  The f32 weights are
+        # rounded once to the compute dtype, as the JAX conv casts them.
         net = RetinaFaceNet()
         self.pretrained = load_or_init("retinaface", net, weights_dir)
-        self.net = net.to(self.device).eval()
+        self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
 
@@ -292,7 +310,7 @@ class RetinaFace:
         stage = stage or (lambda name: contextlib.nullcontext())
         n, h, w = images.shape[:3]
         with stage("network"), f32_precision():
-            x = preprocess(images)
+            x = preprocess(images).to(self.compute_dtype)
             rows = n if self.mesh is None else min(
                 (s for s in SHARD_PAD_SIZES if s >= n), default=n)
             if rows > n:  # a shard's block, at a batch size cuDNN runs well

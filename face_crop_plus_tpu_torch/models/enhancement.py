@@ -13,15 +13,20 @@ JAX package's) parameter names (``conv_first``, ``RRDB_trunk.<i>.RDB<d>.
 conv<k>``, ``trunk_conv``, ``upconv1``, ``upconv2``, ``HRconv``,
 ``conv_last``), children registered in the order the JAX forward creates
 their parameters, so seeded random init draws the same weights in both
-packages.  It computes in float32, as the JAX package does off the TPU,
-under :func:`..utils.device.f32_precision`.  No function of this module
+packages.  It computes in float32 by default, as the JAX package does off
+the TPU, under :func:`..utils.device.f32_precision`; a caller may ask for
+bfloat16 (or float16) with ``compute_dtype``, as a JAX caller does: the
+input is scaled to [0, 1] in f32 and cast, the trunk and the tail run in
+the compute dtype, and their 4x output goes to f32 before the bicubic
+x0.25, the clip and the rounding.  No function of this module
 reaches a Pallas kernel in the JAX package: the convolutions are cuDNN's,
 and the concatenations, activations, upsampling and the bicubic filter are
 stock torch ops.
 
 The JAX module's space-to-depth trunks and H-strip dense blocks are TPU
 layout strategies (128-lane tiles, 16 GB of HBM) and have no counterpart
-here.  The 4x tail, whose activations are 16x the input's pixels at 64
+here: ``trunk_mode`` "auto" and "plain" give the plain trunk, the others
+raise.  The 4x tail, whose activations are 16x the input's pixels at 64
 channels, runs in row strips with an exact halo above
 :attr:`RRDBNetwork.tail_max_pixels` input pixels, so a large original in
 the landmark-free mode keeps its tail tensors bounded.
@@ -49,7 +54,7 @@ from ..ops.nn import conv, downscale4x_bicubic, upsample2x_nearest
 from ..ops.warp import to_uint8
 from ..ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
 from ..parallel.mesh import Replicas, shard_batch
-from ..utils.device import f32_precision, resolve_device, to_host
+from ..utils.device import f32_precision, resolve_compute_dtype, resolve_device, to_host
 from .weights import load_or_init
 
 _NF = 64  # trunk width
@@ -210,7 +215,18 @@ class RRDBNet:
     enhances), a short last one padded by repeating its last row.  With a
     ``mesh`` the device is the mesh's first, ``enh_batch_size`` is a
     multiple of the mesh size, and each shard runs its own replica of
-    ``net``.
+    ``net``.  The network's weights are in ``compute_dtype`` (None gives
+    float32 on every device).
+
+    ``trunk_mode`` and ``use_s2d`` are the JAX constructor's: "auto" and
+    "plain" resolve to the plain trunk, as the JAX package resolves "auto"
+    off a TPU.
+
+    Raises:
+        NotImplementedError: For ``trunk_mode`` "ws2d" or "s2d", or
+            ``use_s2d=True``: TPU layouts of the same function, which the
+            port does not carry.
+        ValueError: For any other ``trunk_mode``.
     """
 
     def __init__(
@@ -221,19 +237,37 @@ class RRDBNet:
         device=None,
         num_blocks: int = _NUM_BLOCKS,
         mesh=None,
+        compute_dtype=None,
+        use_s2d: bool = False,
+        trunk_mode: str = "auto",
     ):
+        if use_s2d:
+            trunk_mode = "s2d"
+        elif trunk_mode == "auto":
+            trunk_mode = "plain"
+        if trunk_mode not in ("plain", "ws2d", "s2d"):
+            raise ValueError(f"unknown trunk_mode: {trunk_mode!r}")
+        if trunk_mode != "plain":
+            raise NotImplementedError(
+                f"trunk_mode={trunk_mode!r}: the ws2d and s2d trunks are TPU layouts "
+                "(128-lane space-to-depth) of the plain trunk's function; ROADMAP.md "
+                "lists them as TPU-only, and the port runs the plain trunk"
+            )
+        self.trunk_mode = trunk_mode
+        self.use_s2d = False
         self.min_face_factor = float(min_face_factor)
         self.enh_batch_size = int(enh_batch_size)
         self.num_blocks = int(num_blocks)
         self.mesh = mesh
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if mesh is not None:
             # Sub-batches split evenly over the shards.
             self.enh_batch_size = -(-self.enh_batch_size // mesh.size) * mesh.size
 
         net = RRDBNetwork(self.num_blocks)
         self.pretrained = load_or_init("rrdb", net, weights_dir, seed=_INIT_SEED)
-        self.net = net.to(self.device).eval()
+        self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
 
@@ -244,13 +278,15 @@ class RRDBNet:
     def _sr_uint8(self, images: torch.Tensor, net=None) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the device → enhanced uint8 (B, H, W, 3).
 
-        /255, the network at 4x, the exact bicubic x0.25 back, clip to
-        [0, 1], x255, round half to even.  ``net`` is the replica to run (a
-        shard's, on the images' device); :attr:`net` by default.
+        /255 in f32, the network at 4x in :attr:`compute_dtype`, its output
+        in f32 through the exact bicubic x0.25 back, clip to [0, 1], x255,
+        round half to even.  ``net`` is the replica to run (a shard's, on
+        the images' device); :attr:`net` by default.
         """
         with f32_precision():
             x = images.permute(0, 3, 1, 2).to(torch.float32) / 255.0
-            lr = downscale4x_bicubic((net or self.net)(x))
+            hr = (net or self.net)(x.to(self.compute_dtype)).float()
+            lr = downscale4x_bicubic(hr)
             out = to_uint8(torch.clamp(lr, 0.0, 1.0) * 255.0)
         return out.permute(0, 2, 3, 1).contiguous()
 

@@ -18,11 +18,15 @@ The network runs NCHW with module paths that give the JAX package's
 parameter names (``cp.resnet.layer1.0.conv1``, ``cp.arm32``,
 ``ffm.convblk``, ``conv_out.conv_out``, ...), children registered in the
 order the JAX forward creates their parameters, so seeded random init draws
-the same weights in both packages.  It computes in float32, as the JAX
-package does off the TPU, under :func:`..utils.device.f32_precision`; the
-sigmoid gates run in f32 whatever the input dtype.  No function of this
-module reaches a Pallas kernel in the JAX package: its convolutions are
-cuDNN's, and the resizes, argmax and counts are stock torch ops.
+the same weights in both packages.  It computes in float32 by default, as
+the JAX package does off the TPU, under
+:func:`..utils.device.f32_precision`; a caller may ask for bfloat16 (or
+float16) with ``compute_dtype``, as a JAX caller does.  The normalisation
+runs in f32 before the cast, the sigmoid gates run in f32 whatever the
+feature dtype, and the logits go to f32 before the 8× upsample and the
+argmax.  No function of this module reaches a Pallas kernel in the JAX
+package: its convolutions are cuDNN's, and the resizes, argmax and counts
+are stock torch ops.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ..ops.nn import (
 from ..ops.yuv import yuv420_to_rgb
 from ..parallel.mesh import Replicas, shard_batch
 from ..utils.batching import pad_batch_to
-from ..utils.device import f32_precision, resolve_device, to_host
+from ..utils.device import f32_precision, resolve_compute_dtype, resolve_device, to_host
 from .weights import load_or_init
 
 #: ImageNet channel statistics used at training time.
@@ -236,7 +240,8 @@ class BiSeNet:
     With a ``mesh`` (:mod:`..parallel.mesh`) the device is the mesh's first,
     ``batch_size`` rounds up to a multiple of the mesh size, and every
     sub-batch splits into one block a shard, parsed on its card by its own
-    replica of ``net``; results gather in shard order.
+    replica of ``net``; results gather in shard order.  The network's
+    weights are in ``compute_dtype`` (None gives float32 on every device).
     """
 
     def __init__(
@@ -247,6 +252,7 @@ class BiSeNet:
         weights_dir: str | None = None,
         device=None,
         mesh=None,
+        compute_dtype=None,
     ):
         self.attr_groups = attr_groups
         self.mask_groups = mask_groups
@@ -258,13 +264,14 @@ class BiSeNet:
         self.std = list(_STD)
         self.mesh = mesh
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if mesh is not None:
             # Sub-batches split evenly over the shards.
             self.batch_size = -(-self.batch_size // mesh.size) * mesh.size
 
         net = BiSeNetNet()
         self.pretrained = load_or_init("bisenet", net, weights_dir, seed=_INIT_SEED)
-        self.net = net.to(self.device).eval()
+        self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
 
@@ -275,15 +282,16 @@ class BiSeNet:
     def _logits(self, images: torch.Tensor, net=None) -> torch.Tensor:
         """uint8 (B, H, W, 3) crops on the device → (B, 19, 512, 512) f32
         logits: /255, half-pixel bilinear to 512², ImageNet normalization
-        with the current ``mean``/``std``, the network (``net``, a shard's
-        replica on the crops' device; :attr:`net` by default)."""
+        with the current ``mean``/``std`` (all f32), the cast to
+        :attr:`compute_dtype`, the network (``net``, a shard's replica on
+        the crops' device; :attr:`net` by default)."""
         mean = torch.tensor([float(v) for v in self.mean], device=images.device)
         std = torch.tensor([float(v) for v in self.std], device=images.device)
         with f32_precision():
             x = (images.float() / 255.0).permute(0, 3, 1, 2)
             x = resize_bilinear_nchw(x, (_INFER_SIZE, _INFER_SIZE))
             x = (x - mean[:, None, None]) / std[:, None, None]
-            return (net or self.net)(x)
+            return (net or self.net)(x.to(self.compute_dtype))
 
     def _parse(self, images: torch.Tensor, out_h: int, out_w: int, src_hw=None, net=None):
         """uint8 (B, H, W, 3) crops on the device → (labels (B, out_h, out_w)

@@ -15,6 +15,22 @@ parameter names (which mirror the reference's torch module paths), so one
 
 ``upsample2x_nearest`` and ``downscale4x_bicubic`` serve the enhancer; like
 its convolutions they take NCHW tensors.
+
+Dtypes follow the JAX module's rules (``face_crop_plus_tpu/ops/nn.py``),
+so a network cast to a model's ``compute_dtype`` (float32 by default,
+bfloat16 when its caller asks) rounds where the JAX one rounds:
+
+* convolutions take their input, weights and bias in the activation dtype
+  (the module's own, cast with the network) and accumulate in f32; the
+  bias rides in the convolution, as one code path on the CPU and the card;
+* folded BatchNorm multiplies and adds in the activation dtype;
+* the resize and bicubic matrices are cast to the activation dtype, every
+  product accumulates in f32 and is rounded once to the activation dtype;
+* softmax and the global average pool compute in f32 and return the
+  activation dtype.
+
+In float32 every cast is the identity, so the default path computes what
+it computed before ``compute_dtype`` existed.
 """
 
 from __future__ import annotations
@@ -120,6 +136,12 @@ def _linear_resize_matrix(
     return m
 
 
+def _matrix_f32(m: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """An interpolation matrix on ``x``'s device, rounded to ``x``'s dtype
+    and held in f32 for the product (exact: the rounded values are f32)."""
+    return to_device(m, x.device).to(x.dtype).float()
+
+
 def resize_bilinear(
     x: torch.Tensor,
     size: tuple[int, int],
@@ -131,15 +153,17 @@ def resize_bilinear(
     Matches ``F.interpolate(mode="bilinear", align_corners=...)`` sampling.
     ``pad`` = ((top, bottom), (left, right)) appends zero borders around the
     resized image inside the same products.  The interpolation matrices are
-    the JAX package's, so the padded geometry is identical.
+    the JAX package's, so the padded geometry is identical.  A bfloat16 or
+    float16 ``x`` meets matrices rounded to its dtype, each product sums
+    in f32 and is rounded once to ``x``'s dtype (the JAX rule).
     """
     h, w = x.shape[1], x.shape[2]
     oh, ow = size
     py, px = pad if pad is not None else ((0, 0), (0, 0))
-    my = to_device(_linear_resize_matrix(h, oh, align_corners, tuple(py)), x.device).to(x.dtype)
-    mx = to_device(_linear_resize_matrix(w, ow, align_corners, tuple(px)), x.device).to(x.dtype)
-    y = torch.einsum("oh,nhwc->nowc", my, x)
-    return torch.einsum("pw,nhwc->nhpc", mx, y)
+    my = _matrix_f32(_linear_resize_matrix(h, oh, align_corners, tuple(py)), x)
+    mx = _matrix_f32(_linear_resize_matrix(w, ow, align_corners, tuple(px)), x)
+    y = torch.einsum("oh,nhwc->nowc", my, x.float()).to(x.dtype)
+    return torch.einsum("pw,nhwc->nhpc", mx, y.float()).to(x.dtype)
 
 
 def resize_bilinear_nchw(
@@ -149,15 +173,14 @@ def resize_bilinear_nchw(
 
     The same interpolation matrices, rows first, as two batched products
     over the last two axes (the parser's channel-first logits need no
-    transpose).
+    transpose), with the same dtype rule.
     """
     h, w = x.shape[2], x.shape[3]
     oh, ow = size
-    my = torch.from_numpy(_linear_resize_matrix(h, oh, align_corners))
-    mx = torch.from_numpy(_linear_resize_matrix(w, ow, align_corners))
-    my = my.to(device=x.device, dtype=x.dtype)
-    mx = mx.to(device=x.device, dtype=x.dtype)
-    return torch.matmul(torch.matmul(my, x), mx.t())
+    my = _matrix_f32(_linear_resize_matrix(h, oh, align_corners), x)
+    mx = _matrix_f32(_linear_resize_matrix(w, ow, align_corners), x)
+    y = torch.matmul(my, x.float()).to(x.dtype)
+    return torch.matmul(y.float(), mx.t()).to(x.dtype)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -181,10 +204,13 @@ def downscale4x_bicubic(x: torch.Tensor) -> torch.Tensor:
 
     Equals ``F.interpolate(x, scale_factor=0.25, mode="bicubic")`` (the
     enhancer's undo of its 4x upscale) for H and W divisible by 4.  Rows
-    first, then columns, as the JAX function filters.
+    first, then columns, as the JAX function filters; each pass sums in
+    f32 and is rounded once to ``x``'s dtype (the taps are exact in
+    bfloat16).
     """
-    rows = sum(t * x[:, :, k::4] for k, t in enumerate(BICUBIC_DOWN4_TAPS))
-    return sum(t * rows[:, :, :, k::4] for k, t in enumerate(BICUBIC_DOWN4_TAPS))
+    xf = x.float()
+    rows = sum(t * xf[:, :, k::4] for k, t in enumerate(BICUBIC_DOWN4_TAPS)).to(x.dtype).float()
+    return sum(t * rows[:, :, :, k::4] for k, t in enumerate(BICUBIC_DOWN4_TAPS)).to(x.dtype)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -116,7 +116,8 @@ def check_mesh(mesh) -> Mesh | None:
 
 def shard_params(module: torch.nn.Module, mesh: Mesh) -> tuple:
     """One replica of ``module`` per shard, on its device, in ``eval()`` with
-    ``requires_grad_(False)``.  A repeated device still gets its own
+    ``requires_grad_(False)``, its tensors in the module's own dtypes (a
+    model's ``compute_dtype``).  A repeated device still gets its own
     replica, so each shard's program reads only its own copy."""
     replicas = []
     for device in mesh.devices:

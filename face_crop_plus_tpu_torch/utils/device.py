@@ -1,8 +1,10 @@
 """Device resolution and compute precision.
 
-The port runs on a CUDA card unless told otherwise, and its detector
-computes in float32, as the JAX package does off the TPU
-(``face_crop_plus_tpu/models/detection.py:206``).  PyTorch lets cuDNN
+The port runs on a CUDA card unless told otherwise.  Its networks compute
+in float32 by default, as the JAX package does off the TPU
+(``face_crop_plus_tpu/models/detection.py:205-206``); a caller may ask a
+model for bfloat16 (or float16) convolutions with ``compute_dtype``, as a
+JAX caller passes ``jnp.bfloat16`` (:func:`resolve_compute_dtype`).  PyTorch lets cuDNN
 convolutions (and, when a caller asks, CUDA matmuls) run in TF32 by
 default; :func:`f32_precision` turns both off around the package's own work
 and restores the caller's settings after it.  :func:`to_device` moves host
@@ -130,11 +132,43 @@ def f32_precision():
                 torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
-def compute_precision() -> dict:
-    """The precision the detector computes in, read inside :func:`f32_precision`."""
+#: The dtypes a model's ``compute_dtype`` accepts: the JAX package's float
+#: compute dtypes (``jnp.float32``, ``jnp.bfloat16``, ``jnp.float16``).
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def resolve_compute_dtype(compute_dtype) -> torch.dtype:
+    """A model's ``compute_dtype`` argument as a torch dtype.
+
+    None gives ``torch.float32``: the JAX package picks bfloat16 only where
+    its platform is a TPU, and the port's devices (a CUDA card, the CPU)
+    never are.
+
+    Raises:
+        ValueError: For anything but None and :data:`COMPUTE_DTYPES`.
+    """
+    if compute_dtype is None:
+        return torch.float32
+    if not isinstance(compute_dtype, torch.dtype) or compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype must be one of {', '.join(map(str, COMPUTE_DTYPES))} or None, "
+            f"got {compute_dtype!r}"
+        )
+    return compute_dtype
+
+
+def compute_precision(compute=None) -> dict:
+    """The precision a network computes in, read inside :func:`f32_precision`.
+
+    ``compute`` is a model (its ``compute_dtype``), a dtype, or None: the
+    float32 every model computes in unless its caller asked otherwise.  The
+    TF32 switches are the ones the package pins around its own work; they
+    do not touch bfloat16 or float16 convolutions.
+    """
+    dtype = resolve_compute_dtype(getattr(compute, "compute_dtype", compute))
     with f32_precision():
         return {
-            "dtype": "float32",
+            "dtype": str(dtype).removeprefix("torch."),
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         }

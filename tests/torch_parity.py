@@ -161,6 +161,28 @@ def small_enhancers(monkeypatch, num_blocks: int = TEST_RRDB_BLOCKS):
                             functools.partial(module.RRDBNet, num_blocks=num_blocks))
 
 
+def compute_dtype_models(monkeypatch, jax_dtype, torch_dtype):
+    """Both packages' Croppers build RetinaFace, BiSeNet and RRDBNet with
+    the given ``compute_dtype`` (a Cropper has no such argument, as in the
+    JAX package): each class is looked up at model init, so a partial
+    stands in for it.  The weight-shape caches are filled first, since
+    they build the classes themselves."""
+    from face_crop_plus_tpu.models import detection as jd
+    from face_crop_plus_tpu.models import enhancement as je
+    from face_crop_plus_tpu.models import parsing as jp
+    from face_crop_plus_tpu_torch.models import detection as td
+    from face_crop_plus_tpu_torch.models import enhancement as te
+    from face_crop_plus_tpu_torch.models import parsing as tp
+
+    jax_retinaface_params()
+    jax_bisenet_params()
+    for module, name, dtype in ((jd, "RetinaFace", jax_dtype), (jp, "BiSeNet", jax_dtype),
+                                (je, "RRDBNet", jax_dtype), (td, "RetinaFace", torch_dtype),
+                                (tp, "BiSeNet", torch_dtype), (te, "RRDBNet", torch_dtype)):
+        monkeypatch.setattr(module, name,
+                            functools.partial(getattr(module, name), compute_dtype=dtype))
+
+
 def torch_net(params: dict[str, np.ndarray]):
     """A port :class:`RetinaFaceNet` on the CPU holding ``params``."""
     from face_crop_plus_tpu_torch.models.detection import RetinaFaceNet
