@@ -106,7 +106,7 @@ from .ops.yuv import packed_length, rgb_to_yuv420_np, yuv420_to_rgb_np
 from .parallel.mesh import check_mesh
 from .utils import native_io
 from .utils.batching import as_batch, pad_batch_to
-from .utils.device import resolve_device
+from .utils.device import resolve_device, wait_device
 from .utils.io import (
     PackedYUVImage,
     encoder_available,
@@ -151,7 +151,9 @@ class Cropper:
     path (parsed here) or a (landmarks (N, L, 2), file names (N,)) pair.  ``det_model``,
     ``enh_model`` and ``par_model`` are None when their feature is off (the
     detector also when landmarks are given); ``stats`` accumulates
-    per-stage wall time (:class:`.utils.profiling.PipelineStats`).
+    per-stage wall time (:class:`.utils.profiling.PipelineStats`) and, while
+    a ``torch.profiler`` profile runs, the spans and counters of the
+    cropper and of the models and pipeline it hands ``stats`` to.
     """
 
     #: Faces per device warp launch: bounds one launch's crop buffer
@@ -206,7 +208,7 @@ class Cropper:
         self.mesh = mesh
         self.crop_source = crop_source
         self.num_std_landmarks = 5
-        self.stats = PipelineStats()
+        self._stats = PipelineStats()
 
         check_mesh(mesh)
         if isinstance(self.landmarks, str):
@@ -224,6 +226,26 @@ class Cropper:
         #: f32 sums round differently: the tree would depend on
         #: ``num_processes``.
         self._device_lock = threading.Lock()
+        self.stats = self._stats
+
+    @property
+    def stats(self) -> PipelineStats:
+        """The stage times, spans and counters of this cropper."""
+        return self._stats
+
+    @stats.setter
+    def stats(self, stats: PipelineStats):
+        """Replaces the stats, here and in every model and the pipeline."""
+        self._stats = stats
+        for layer in (getattr(self, name, None)
+                      for name in ("det_model", "enh_model", "par_model", "_fused")):
+            if layer is not None:
+                layer.stats = stats
+
+    def _locked(self):
+        """The device lock; while tracing, its wait and hold are the spans
+        "device_lock.wait" and "device_lock" (:meth:`PipelineStats.locked`)."""
+        return self._stats.locked(self._device_lock)
 
     def _init_models(self):
         """Builds the models the configuration asks for.
@@ -349,7 +371,7 @@ class Cropper:
         its real rows surface: cuDNN's algorithm picks for other batch
         sizes can be several times slower (:mod:`.utils.batching`).
         """
-        with self._device_lock:
+        with self._locked():
             return self._fused.process(self._pad_group(batch), self.resize_size,
                                        return_device_crops=return_device_crops,
                                        valid_n=len(batch), **kw)
@@ -371,7 +393,7 @@ class Cropper:
         ``host_pack`` RGB crops are packed on the host too.  The JAX
         ``process_batch``'s host-crop branch (``cropper.py:1244-1292``).
         """
-        with self._device_lock:
+        with self._locked():
             lm, loc = self._fused.detect_only(self._pad_group(batch), self.resize_size,
                                               valid_n=len(batch), packed_hw=packed_hw)
         if len(lm) == 0:
@@ -395,7 +417,7 @@ class Cropper:
         packed 4:2:0 rows of ``src_hw``)."""
         if self.par_model is None:
             return None, None
-        with self.stats.stage("parse", len(faces)), self._device_lock:
+        with self.stats.stage("parse", len(faces)), self._locked():
             return self.par_model.predict(faces, src_hw=src_hw)
 
     # ------------------------------------------------------------------
@@ -414,9 +436,10 @@ class Cropper:
             return fit(landmarks, np.asarray(self.landmarks_target))
         fit = estimate_affine if self.allow_skew else estimate_similarity
         target = torch.from_numpy(np.asarray(self.landmarks_target, np.float32))
-        with self._device_lock:
+        with self._locked():
             matrices, valid = fit(torch.from_numpy(landmarks).to(self._device), target)
-            return matrices.cpu().numpy(), valid.cpu().numpy()
+            with wait_device(self._stats):
+                return matrices.cpu().numpy(), valid.cpu().numpy()
 
     def crop_align(self, images, padding, indices, landmarks_source) -> np.ndarray:
         """Aligns and center-crops every face: (F', Ho, Wo, 3) uint8 crops.
@@ -516,15 +539,19 @@ class Cropper:
         crops = np.empty((f,) + self.output_size[::-1] + (3,), np.uint8)
         if not torch.is_tensor(images):
             images = torch.from_numpy(np.ascontiguousarray(images))
-        with self._device_lock:
-            images = images.to(self._device)
+        with self._locked():
+            with wait_device(self._stats):  # a blocking copy from pageable memory
+                images = images.to(self._device)
             mats = torch.from_numpy(np.ascontiguousarray(matrices, np.float32)).to(self._device)
             for s in range(0, f, self.max_warp_chunk):
                 e = min(s + self.max_warp_chunk, f)
                 idx = torch.from_numpy(indices[s:e].astype(np.int32)).to(self._device)
                 win = None if windows is None else torch.from_numpy(windows[s:e]).to(self._device)
+                self._stats.count("warp_crops", e - s, size=self.output_size)
                 out = warp_affine_u8(images, mats[s:e], idx, self.output_size, self.padding, win)
-                torch.from_numpy(crops[s:e]).copy_(out)
+                self._stats.count("bytes_home", crops[s:e].nbytes)
+                with wait_device(self._stats):
+                    torch.from_numpy(crops[s:e]).copy_(out)
         return crops
 
     def _warp_ragged(self, images, indices, matrices, prefer_native=False) -> np.ndarray:
@@ -743,8 +770,10 @@ class Cropper:
         batch, _, paddings = as_batch(images, self.resize_size)
         n_true = len(batch)
         batch, _ = pad_batch_to(batch, self._staged_pad_size(n_true))
-        with self._device_lock:
-            batch = torch.from_numpy(batch).to(self._device)
+        self._stats.count("bytes_up", batch.nbytes)
+        with self._locked():
+            with wait_device(self._stats):  # a blocking copy from pageable memory
+                batch = torch.from_numpy(batch).to(self._device)
             landmarks, indices = self.det_model.predict(batch)
         keep = [j for j, i in enumerate(indices) if i < n_true]
         landmarks, indices = landmarks[keep], [indices[j] for j in keep]
@@ -769,7 +798,7 @@ class Cropper:
             if len(landmarks) == 0:
                 return self._empty()
         if self.enh_model is not None:
-            with self.stats.stage("enhance", len(batch)), self._device_lock:
+            with self.stats.stage("enhance", len(batch)), self._locked():
                 batch = self.enh_model.predict(batch, landmarks, list(indices))
         with self.stats.stage("crop", len(landmarks)):
             return self._align_crop_filtered(batch, paddings, indices, landmarks)
@@ -880,26 +909,31 @@ class Cropper:
         Raises:
             ValueError: Without a detector (the landmark-file and
                 landmark-free modes).
+
+        While tracing, the call is the span "request" (items: the images)
+        under a request id of its own.
         """
-        if isinstance(images, np.ndarray):
-            images = list(images)
         if self.det_model is None:
             raise ValueError(
                 "process_images requires an active detector "
                 "(det_threshold must be set and landmarks must be None)."
             )
-        if len(images) == 0:
-            return (*self._empty(), (None, None))
-        uniform = len({im.shape for im in images}) == 1
-        if uniform and self._fused_eligible(images[0].shape, len(images)):
-            if self.enh_model is None and self._host_crop_enabled():
-                crops, indices = self._host_crop_group(np.stack(images))
+        with self._stats.span("request", len(images), request=True):
+            if isinstance(images, np.ndarray):
+                images = list(images)
+            if len(images) == 0:
+                return (*self._empty(), (None, None))
+            uniform = len({im.shape for im in images}) == 1
+            if uniform and self._fused_eligible(images[0].shape, len(images)):
+                if self.enh_model is None and self._host_crop_enabled():
+                    crops, indices = self._host_crop_group(np.stack(images))
+                else:
+                    crops, _lm, indices = self._fused_process(np.stack(images))
             else:
-                crops, _lm, indices = self._fused_process(np.stack(images))
-        else:
-            crops, indices = self._detect_crop_staged(images)
-        groups = self._parse(crops) if len(crops) else (None, None)
-        return crops, indices, groups
+                crops, indices = self._detect_crop_staged(images)
+            self._stats.count("faces_kept", len(crops))
+            groups = self._parse(crops) if len(crops) else (None, None)
+            return crops, indices, groups
 
     def process_images_stream(self, batches, depth: int = 2, pack_upload: bool | None = None):
         """Pipelined serving: request batches in, one ``(crops, indices,
@@ -948,6 +982,9 @@ class Cropper:
                 effect in the other mode.  None reads ``FCPT_SERVE_PACK``
                 ("1" on, anything else off).
 
+        While tracing, each batch kept in flight records the spans
+        "stream.dispatch" and "stream.collect" under one request id.
+
         Yields:
             The :meth:`process_images` result tuple for each input batch.
 
@@ -979,8 +1016,8 @@ class Cropper:
             yield self._stream_collect(queue.popleft())
 
     def _stream_dispatch(self, images: list, pack_upload: bool):
-        """Puts one stream batch in flight: (batch, host crop?, handle), or
-        None when the batch runs as :meth:`process_images`.
+        """Puts one stream batch in flight: (batch, host crop?, handle,
+        request id), or None when the batch runs as :meth:`process_images`.
 
         The shape is granted last (:meth:`_fused_eligible` records it).
         Packed uploads are keyed ``("yuv420", h, w)``, the key packed
@@ -997,32 +1034,38 @@ class Cropper:
         packed = host_crop and pack_upload and h % 2 == 0 and w % 2 == 0
         if not self._fused_eligible(("yuv420", h, w) if packed else images[0].shape, len(batch)):
             return None
-        padded = self._pad_group(batch)
-        with self._device_lock:
-            if not host_crop:
-                handle = self._fused.process_async(padded, self.resize_size, valid_n=len(batch))
-            elif packed:
-                handle = self._fused.detect_only_async(rgb_to_yuv420_np(padded), self.resize_size,
-                                                       valid_n=len(batch), packed_hw=(h, w))
-            else:
-                handle = self._fused.detect_only_async(padded, self.resize_size,
+        with self._stats.span("stream.dispatch", len(batch), request=True) as span:
+            padded = self._pad_group(batch)
+            with self._locked():
+                if not host_crop:
+                    handle = self._fused.process_async(padded, self.resize_size,
                                                        valid_n=len(batch))
-        return batch, host_crop, handle
+                elif packed:
+                    handle = self._fused.detect_only_async(
+                        rgb_to_yuv420_np(padded), self.resize_size, valid_n=len(batch),
+                        packed_hw=(h, w))
+                else:
+                    handle = self._fused.detect_only_async(padded, self.resize_size,
+                                                           valid_n=len(batch))
+        return batch, host_crop, handle, None if span is None else span.request
 
     def _stream_collect(self, item) -> tuple:
         """Finishes one in-flight stream batch: what :meth:`process_images`
         returns for it (host crops as :meth:`_host_crop_group` makes them)."""
-        batch, host_crop, handle = item
-        if host_crop:
-            with self._device_lock:
-                lm, loc = self._fused.detect_only_finish(handle)
-            crops, indices = (self._align_crop_filtered(batch, None, loc, lm, prefer_native=True)
-                              if len(lm) else self._empty())
-        else:
-            with self._device_lock:
-                crops, _lm, indices = self._fused.process_finish(handle)
-        groups = self._parse(crops) if len(crops) else (None, None)
-        return crops, indices, groups
+        batch, host_crop, handle, request = item
+        with self._stats.span("stream.collect", len(batch), request=request):
+            if host_crop:
+                with self._locked():
+                    lm, loc = self._fused.detect_only_finish(handle)
+                crops, indices = (
+                    self._align_crop_filtered(batch, None, loc, lm, prefer_native=True)
+                    if len(lm) else self._empty())
+            else:
+                with self._locked():
+                    crops, _lm, indices = self._fused.process_finish(handle)
+            self._stats.count("faces_kept", len(crops))
+            groups = self._parse(crops) if len(crops) else (None, None)
+            return crops, indices, groups
 
     def _process_landmark_free(self, images, file_names, output_dir: str, want_packed: bool):
         """The landmark-free mode: whole images pass through to the tree.
@@ -1036,7 +1079,7 @@ class Cropper:
         """
         if self.enh_model is not None:
             pack_out = want_packed and self._jpeg_bound(file_names)
-            with self.stats.stage("enhance", len(images)), self._device_lock:
+            with self.stats.stage("enhance", len(images)), self._locked():
                 images = self.enh_model.predict(images, None, None, pack_out=pack_out)
         groups = (None, None)
         if self.par_model is not None:
@@ -1076,7 +1119,7 @@ class Cropper:
         if landmarks.shape[1] != self.num_std_landmarks:
             landmarks = reduce_landmarks(landmarks, self.num_std_landmarks)
         if self.enh_model is not None:
-            with self.stats.stage("enhance", len(images)), self._device_lock:
+            with self.stats.stage("enhance", len(images)), self._locked():
                 images = self.enh_model.predict(images, landmarks, indices)
         with self.stats.stage("crop", len(landmarks)):
             if yuv_crop:
@@ -1152,6 +1195,7 @@ class Cropper:
             return
         crops = np.concatenate(crops_parts)
         indices = np.concatenate(idx_parts)
+        self._stats.count("faces_kept", len(crops))
         # The handoff tensor is a power-of-two bucket whose extra rows
         # repeat the last face: the parser gets exactly the F real rows.
         if dev_crops is not None:
@@ -1175,23 +1219,25 @@ class Cropper:
         ``max(resize_size)``; landmark coordinates are in full-resolution
         space, so there every source decodes at its own size.  Packed
         uploads and the YUV-direct crops read plain 4:2:0 JPEGs as their
-        stored planes.
+        stored planes.  While tracing, the call is the span "batch" (items:
+        the files) under a request id of its own.
         """
-        detect = self.det_model is not None
-        target_max = max(self.resize_size) if detect else None
-        want_packed = self._packed_upload_eligible()
-        yuv_crop = self._yuv_crop_eligible()
-        with self.stats.stage("read", len(file_names)):
-            images, file_names = read_images(file_names, input_dir, target_max,
-                                             want_packed=want_packed or yuv_crop)
-        if len(images) == 0:
-            return
-        if detect:
-            self._process_detected(images, file_names, output_dir)
-        elif self.landmarks is not None:
-            self._process_landmarks(images, file_names, output_dir, yuv_crop)
-        else:
-            self._process_landmark_free(images, file_names, output_dir, want_packed)
+        with self._stats.span("batch", len(file_names), request=True):
+            detect = self.det_model is not None
+            target_max = max(self.resize_size) if detect else None
+            want_packed = self._packed_upload_eligible()
+            yuv_crop = self._yuv_crop_eligible()
+            with self.stats.stage("read", len(file_names)):
+                images, file_names = read_images(file_names, input_dir, target_max,
+                                                 want_packed=want_packed or yuv_crop)
+            if len(images) == 0:
+                return
+            if detect:
+                self._process_detected(images, file_names, output_dir)
+            elif self.landmarks is not None:
+                self._process_landmarks(images, file_names, output_dir, yuv_crop)
+            else:
+                self._process_landmark_free(images, file_names, output_dir, want_packed)
 
     def process_dir(
         self,

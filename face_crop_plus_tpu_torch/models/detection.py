@@ -44,7 +44,9 @@ from ..utils.device import (
     resolve_device,
     to_device,
     to_host,
+    wait_device,
 )
+from ..utils.profiling import PipelineStats
 from .backbones import ResNet50Features
 from .weights import load_or_init
 
@@ -282,6 +284,9 @@ class RetinaFace:
         self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
+        #: Where the spans "det_net" and "wait_device" and the counts
+        #: "nms_pairs" and "redispatch" go (the ``Cropper`` hands its own).
+        self.stats = PipelineStats()
 
     def replicas(self) -> tuple:
         """The network of each shard: one replica per mesh entry, kept
@@ -315,7 +320,9 @@ class RetinaFace:
                 (s for s in SHARD_PAD_SIZES if s >= n), default=n)
             if rows > n:  # a shard's block, at a batch size cuDNN runs well
                 x = torch.cat([x, x[-1:].expand(rows - n, *x.shape[1:])])
-            scores2, loc, ldm = (t[:n] for t in retinaface_forward(net or self.net, x))
+            with self.stats.span("det_net", rows, device=x.device):
+                out = retinaface_forward(net or self.net, x)
+            scores2, loc, ldm = (t[:n] for t in out)
         with stage("select"):
             priors = to_device(anchor_grid(h, w), images.device)
             boxes, landms = decode_detections(loc, ldm, priors, (h, w), args["variances"])
@@ -328,6 +335,7 @@ class RetinaFace:
                 pre_topk=args["pre_topk"],
                 max_faces=args["max_faces"],
                 strategy=args["strategy"],
+                stats=self.stats,
             )
 
     def _detect_args(self) -> dict:
@@ -411,15 +419,18 @@ class RetinaFace:
         current = self._detect_args()
         if args != current:
             args = current
+            self.stats.count("redispatch")
             out, caps = dispatch(args)
         while True:
-            caps_np = _host_caps(caps)
+            with wait_device(self.stats):
+                caps_np = _host_caps(caps)
             grown = self.grown_args(caps_np[:valid_n], args, n_anchors)
             if grown is None:
                 return out
             args = grown
             self.pre_topk = args["pre_topk"]
             self.max_faces = args["max_faces"]
+            self.stats.count("redispatch")
             out, caps = dispatch(args)
 
     def _warn_cap(self, detail: str):
@@ -468,7 +479,7 @@ class RetinaFace:
             return outs, [caps for _sel, _valid, caps in outs]
 
         outs = self.dispatch_with_growth(dispatch, num_anchors(h, w), n)
-        host = to_host(out[:2] for out in outs)
+        host = to_host((out[:2] for out in outs), self.stats)
         sel = np.concatenate([lm for lm, _valid in host])[:n]
         valid = np.concatenate([v for _lm, v in host])[:n]
         return sel, valid

@@ -54,7 +54,14 @@ from ..ops.nn import conv, downscale4x_bicubic, upsample2x_nearest
 from ..ops.warp import to_uint8
 from ..ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
 from ..parallel.mesh import Replicas, shard_batch
-from ..utils.device import f32_precision, resolve_compute_dtype, resolve_device, to_host
+from ..utils.device import (
+    f32_precision,
+    resolve_compute_dtype,
+    resolve_device,
+    to_host,
+    wait_device,
+)
+from ..utils.profiling import PipelineStats
 from .weights import load_or_init
 
 _NF = 64  # trunk width
@@ -270,6 +277,8 @@ class RRDBNet:
         self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
+        #: Where the spans "enh_net" and "wait_device" go (the ``Cropper`` hands its own).
+        self.stats = PipelineStats()
 
     def replicas(self) -> tuple:
         """The network of each shard (``(net,)`` without a mesh)."""
@@ -285,7 +294,8 @@ class RRDBNet:
         """
         with f32_precision():
             x = images.permute(0, 3, 1, 2).to(torch.float32) / 255.0
-            hr = (net or self.net)(x.to(self.compute_dtype)).float()
+            with self.stats.span("enh_net", x.shape[0], device=x.device):
+                hr = (net or self.net)(x.to(self.compute_dtype)).float()
             lr = downscale4x_bicubic(hr)
             out = to_uint8(torch.clamp(lr, 0.0, 1.0) * 255.0)
         return out.permute(0, 2, 3, 1).contiguous()
@@ -346,7 +356,8 @@ class RRDBNet:
         for start, valid, rows in self._chunks(len(images)):
             if self.mesh is not None:
                 shards = self.enhance_shards(shard_batch(images[rows], self.mesh), src_hw, pack_out)
-                res = np.concatenate([host for host, in to_host((t,) for t in shards)])
+                host = to_host(((t,) for t in shards), self.stats)
+                res = np.concatenate([t for t, in host])
                 out[start : start + valid] = res[:valid]
                 continue
             chunk = torch.from_numpy(images[rows]).to(self.device)
@@ -355,7 +366,8 @@ class RRDBNet:
             res = self._sr_uint8(chunk)
             if pack_out:
                 res = rgb_to_yuv420(res)
-            out[start : start + valid] = res[:valid].cpu().numpy()
+            with wait_device(self.stats):
+                out[start : start + valid] = res[:valid].cpu().numpy()
         return out
 
     def predict(self, images, landmarks: np.ndarray | None, indices: list[int] | None,

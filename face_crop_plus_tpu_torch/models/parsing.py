@@ -48,6 +48,7 @@ from ..ops.yuv import yuv420_to_rgb
 from ..parallel.mesh import Replicas, shard_batch
 from ..utils.batching import pad_batch_to
 from ..utils.device import f32_precision, resolve_compute_dtype, resolve_device, to_host
+from ..utils.profiling import PipelineStats
 from .weights import load_or_init
 
 #: ImageNet channel statistics used at training time.
@@ -274,6 +275,8 @@ class BiSeNet:
         self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
+        #: Where the spans "parse_net" and "wait_device" go (the ``Cropper`` hands its own).
+        self.stats = PipelineStats()
 
     def replicas(self) -> tuple:
         """The network of each shard (``(net,)`` without a mesh)."""
@@ -291,7 +294,8 @@ class BiSeNet:
             x = (images.float() / 255.0).permute(0, 3, 1, 2)
             x = resize_bilinear_nchw(x, (_INFER_SIZE, _INFER_SIZE))
             x = (x - mean[:, None, None]) / std[:, None, None]
-            return (net or self.net)(x.to(self.compute_dtype))
+            with self.stats.span("parse_net", x.shape[0], device=x.device):
+                return (net or self.net)(x.to(self.compute_dtype))
 
     def _parse(self, images: torch.Tensor, out_h: int, out_w: int, src_hw=None, net=None):
         """uint8 (B, H, W, 3) crops on the device → (labels (B, out_h, out_w)
@@ -360,10 +364,10 @@ class BiSeNet:
         the whole sub-batch with :attr:`net`.  Returns each shard's host
         arrays, in shard order."""
         if self.mesh is None:
-            return to_host([fn(imgs, self.net)])
+            return to_host([fn(imgs, self.net)], self.stats)
         with f32_precision():  # once around every shard's pass
             outs = [fn(block, net) for block, net in zip(imgs, self.replicas())]
-        return to_host(outs)
+        return to_host(outs, self.stats)
 
     @staticmethod
     def _out_hw(images, src_hw) -> tuple[int, int]:

@@ -102,6 +102,7 @@ def select_faces(
     pre_topk: int = 256,
     max_faces: int = 64,
     strategy: str = "all",
+    stats=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Thresholds, NMS-filters and strategy-selects faces for a whole batch.
 
@@ -114,6 +115,8 @@ def select_faces(
         pre_topk: Per-image candidate cap before NMS.
         max_faces: Per-image output cap (only used for "all").
         strategy: "all" | "best" | "largest".
+        stats: Optional :class:`..utils.profiling.PipelineStats` that counts
+            "nms_pairs" a launch: N·K(K−1)/2 candidate pairs, with (N, K).
 
     Returns:
         Padded landmarks (N, F, 10) float32, validity (N, F) bool, where
@@ -128,6 +131,9 @@ def select_faces(
     lm = _take_rows(landms, top_i)  # (N, K, 10)
 
     # Kernel on a CUDA tensor, plain version on a CPU tensor.
+    if stats is not None:
+        n, k = valid.shape
+        stats.count("nms_pairs", n * k * (k - 1) // 2, n=n, k=k)
     keep = greedy_nms_mask_cuda(b.contiguous(), valid.contiguous(), nms_threshold)
 
     kept_raw = keep.sum(dim=1).to(torch.int32)  # (N,) pre-max_faces

@@ -73,7 +73,8 @@ from .parallel.mesh import (
     shard_batch,
 )
 from .utils.batching import next_pow2
-from .utils.device import f32_precision, to_device, to_host, to_host_async
+from .utils.device import f32_precision, to_device, to_host, to_host_async, wait_device
+from .utils.profiling import PipelineStats
 
 
 def interim_geometry(
@@ -111,6 +112,12 @@ def device_resize_pad(
     return x, scale, pad
 
 
+@contextlib.contextmanager
+def _within(outer, inner):
+    with outer, inner:
+        yield
+
+
 def _cat_shards(host) -> tuple[torch.Tensor, ...]:
     """Every shard's host tuple of arrays or tensors, concatenated in shard
     order into one tuple of tensors."""
@@ -120,12 +127,16 @@ def _cat_shards(host) -> tuple[torch.Tensor, ...]:
 class FusedPipeline:
     """Detect→align→crop executor for uniform batches.
 
-    ``stage_timer``, when set, is called with a stage name and must return a
-    context manager; each stage runs inside it (:attr:`STAGES`).  "compact"
-    is the two-program path's host compaction (validity to the host, kept
-    slots); "fit_warp" and "to_host" recur once per crop chunk there.
-    "enhance" is the super-resolution of the gated interim rows; "unpack"
-    the device reconstruction of packed 4:2:0 uploads.
+    Each stage (:attr:`STAGES`) is a span of :attr:`stats` while tracing
+    (:mod:`.utils.profiling`).  "compact" is the two-program path's host
+    compaction (validity to the host, kept slots); "fit_warp" and
+    "to_host" recur once per crop chunk there.  "enhance" is the
+    super-resolution of the gated interim rows; "unpack" the device
+    reconstruction of packed 4:2:0 uploads.  ``stage_timer``, an optional
+    hook, is called with a stage name and must return a context manager;
+    each stage runs inside it, within the stage's span.  The pipeline counts
+    "warp_crops" a warp launch and the bytes it moves ("bytes_up",
+    "bytes_home") into :attr:`stats`, which the ``Cropper`` hands it.
     """
 
     STAGES = ("unpack", "resize_pad", "network", "select", "compact", "enhance", "fit_warp",
@@ -162,13 +173,23 @@ class FusedPipeline:
         #: The :class:`.parallel.mesh.Mesh` the batch shards over, or None.
         self.mesh = mesh
         self.stage_timer = None
+        self.stats = PipelineStats()
 
     @property
     def device(self) -> torch.device:
         return self.det.device
 
     def _stage(self, name: str):
-        return contextlib.nullcontext() if self.stage_timer is None else self.stage_timer(name)
+        span = self.stats.span(name)
+        if self.stage_timer is None:
+            return span
+        return _within(span, self.stage_timer(name))
+
+    def _warp(self, images, matrices, img_idx, *args):
+        """The warp kernel's wrapper, counted as "warp_crops" (a launch's
+        crops, with the output size)."""
+        self.stats.count("warp_crops", matrices.shape[0], size=self.output_size)
+        return warp_affine_u8(images, matrices, img_idx, self.output_size, *args)
 
     def _estimate(self, lm: torch.Tensor):
         estimate = estimate_affine if self.allow_skew else estimate_similarity
@@ -230,15 +251,12 @@ class FusedPipeline:
                 windows = windows[None].expand(n * k, 4).contiguous()
                 # The rounded interim holds exact integers in [0, 255]: the
                 # uint8 cast is lossless.
-                crops = warp_affine_u8(
-                    to_uint8(interim).contiguous(), mats, img_idx, self.output_size,
-                    self.border_mode, windows,
+                crops = self._warp(
+                    to_uint8(interim).contiguous(), mats, img_idx, self.border_mode, windows
                 )
             else:
                 mats, ok = self._estimate(face_lm)
-                crops = warp_affine_u8(
-                    images, mats, img_idx, self.output_size, self.border_mode
-                )
+                crops = self._warp(images, mats, img_idx, self.border_mode)
         return crops, face_lm, valid & ok, caps
 
     def _crop_selected(self, images, face_lm, sel_idx, lm_scale=1.0, window=None):
@@ -264,9 +282,7 @@ class FusedPipeline:
         mats, ok = self._estimate(lm)
         img_idx = torch.div(sel_idx, k, rounding_mode="floor").to(torch.int32)
         windows = None if window is None else window[None].expand(len(sel_idx), 4).contiguous()
-        crops = warp_affine_u8(
-            images, mats, img_idx, self.output_size, self.border_mode, windows
-        )
+        crops = self._warp(images, mats, img_idx, self.border_mode, windows)
         return crops, ok
 
     def _crop_selected_chunked(self, imgs, face_lm, keep: np.ndarray, lm_scale=1.0, window=None,
@@ -297,15 +313,17 @@ class FusedPipeline:
                 fetch = dev_crops[: len(sub)]
                 if pack:
                     fetch = rgb_to_yuv420(fetch)
-                torch.from_numpy(crops[s : s + len(sub)]).copy_(fetch)
-                ok[s : s + len(sub)] = dev_ok[: len(sub)].cpu().numpy()
+                self.stats.count("bytes_home", fetch.numel() + len(sub))
+                with wait_device(self.stats):
+                    torch.from_numpy(crops[s : s + len(sub)]).copy_(fetch)
+                    ok[s : s + len(sub)] = dev_ok[: len(sub)].cpu().numpy()
         return crops, ok, dev_handle
 
     def _upload(self, images: np.ndarray, packed_hw) -> torch.Tensor:
         """The uint8 batch on the device: RGB as it is, or packed rows
         reconstructed there (stage "unpack").  The copy does not make the
         host wait (:func:`.utils.device.to_device`)."""
-        imgs = to_device(images, self.device)
+        imgs = to_device(images, self.device, stats=self.stats)
         if packed_hw is None:
             return imgs
         with self._stage("unpack"):
@@ -393,7 +411,7 @@ class FusedPipeline:
 
         dev_face_lm, dev_valid, _caps, src_imgs = out
         k = dev_face_lm.shape[0] // n
-        with self._stage("compact"):
+        with self._stage("compact"), wait_device(self.stats):
             keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
         if len(keep) == 0:
             return self._empty_result(return_device_crops, pack_crops)
@@ -405,7 +423,7 @@ class FusedPipeline:
         crops_k, ok, dev_handle = self._crop_selected_chunked(
             src_imgs, dev_face_lm, keep, lm_scale, window, pack_crops
         )
-        with self._stage("to_host"):
+        with self._stage("to_host"), wait_device(self.stats):
             face_lm = dev_face_lm.cpu().numpy()[keep][ok]
             crops = crops_k if ok.all() else crops_k[ok]
         indices = (keep[ok] // k).astype(np.int64)
@@ -475,7 +493,7 @@ class FusedPipeline:
         rows = valid_n * (valid.shape[0] // caps.shape[0])
         with self._stage("to_host"):
             fetch = rgb_to_yuv420(crops[:rows]) if pack else crops[:rows]
-            return to_host_async((fetch, face_lm[:rows], valid[:rows], caps))
+            return to_host_async((fetch, face_lm[:rows], valid[:rows], caps), self.stats)
 
     def process_finish(self, handle: dict, return_device_crops: bool = False):
         """Collects a :meth:`process_async` handle; returns what
@@ -489,15 +507,17 @@ class FusedPipeline:
         device into a power-of-two bucket whose rows beyond F repeat the
         last kept face.
         """
-        if handle["event"] is not None:
-            handle["event"].synchronize()
+        with wait_device(self.stats):
+            if handle["event"] is not None:
+                handle["event"].synchronize()
         valid_n, host = handle["valid_n"], handle["host"]
         out = self.det.finish_growth(handle["out"], host[3], handle["args"], handle["dispatch"],
                                      handle["n_anchors"], valid_n)
         if out is not handle["out"]:  # re-dispatched: fetch the new result
             host, event = self._fetch_async(out, valid_n, handle["pack"])
-            if event is not None:
-                event.synchronize()
+            with wait_device(self.stats):
+                if event is not None:
+                    event.synchronize()
         crops, face_lm, valid = (t.numpy() for t in host[:3])
         k = out[2].shape[0] // out[3].shape[0]
         keep = np.nonzero(valid)[0]
@@ -534,11 +554,11 @@ class FusedPipeline:
         dev_face_lm, dev_valid, _caps, dev_interim = out
         h, w = imgs.shape[1:3]
         k = dev_face_lm.shape[0] // imgs.shape[0]
-        with self._stage("compact"):
+        with self._stage("compact"), wait_device(self.stats):
             keep = np.nonzero(dev_valid[: valid_n * k].cpu().numpy())[0]
-        if len(keep) == 0:
-            return self._empty_result(return_device_crops, pack)
-        face_lm = dev_face_lm.cpu().numpy()[keep]  # (F, 5, 2) source coordinates
+            if len(keep) == 0:
+                return self._empty_result(return_device_crops, pack)
+            face_lm = dev_face_lm.cpu().numpy()[keep]  # (F, 5, 2) source coordinates
         indices = (keep // k).astype(np.int64)
 
         scale, win, gated, is_gated = self._gate(face_lm, indices, (h, w), interim_hw, valid_n)
@@ -575,12 +595,11 @@ class FusedPipeline:
                 with self._stage("fit_warp"):
                     lm = torch.from_numpy(lm_interim[s : s + chunk]).to(self.device)
                     mats, ok = self._estimate(lm)
-                    crops = warp_affine_u8(
+                    crops = self._warp(
                         enhanced, mats, torch.from_numpy(local[s : s + chunk]).to(self.device),
-                        self.output_size, self.border_mode,
-                        window[None].expand(len(pos), 4).contiguous(),
+                        self.border_mode, window[None].expand(len(pos), 4).contiguous(),
                     )
-                with self._stage("to_host"):
+                with self._stage("to_host"), wait_device(self.stats):
                     crops_all[pos] = (rgb_to_yuv420(crops) if pack else crops).cpu().numpy()
                     ok_all[pos] = ok.cpu().numpy()
 
@@ -647,7 +666,7 @@ class FusedPipeline:
 
         args = self.det._detect_args()
         out, _caps = dispatch(args)
-        host, event = to_host_async(out)
+        host, event = to_host_async(out, self.stats)
         return {
             "out": host,
             "event": event,
@@ -667,9 +686,10 @@ class FusedPipeline:
         and one host tuple a shard.
         """
         events, out = handle["event"], handle["out"]
-        for event in events if isinstance(events, list) else [events]:
-            if event is not None:
-                event.synchronize()
+        with wait_device(self.stats):
+            for event in events if isinstance(events, list) else [events]:
+                if event is not None:
+                    event.synchronize()
         if isinstance(out, list):  # a mesh: every shard's host tuple
             out = _cat_shards(out)
         valid_n = handle["valid_n"]
@@ -677,7 +697,7 @@ class FusedPipeline:
             out, out[2], handle["args"], handle["dispatch"], handle["n_anchors"], valid_n
         )
         if isinstance(out, list):  # re-dispatched on a mesh
-            out = _cat_shards(to_host(out))
+            out = _cat_shards(to_host(out, self.stats))
         face_lm, valid, _caps = out
         k = valid.shape[0] // handle["n"]
         keep = np.nonzero(valid[: valid_n * k].cpu().numpy())[0]
@@ -739,7 +759,8 @@ class FusedPipeline:
 
         outs = self.det.dispatch_with_growth(dispatch, num_anchors(ih, iw), valid_n)
         with self._stage("compact"):
-            face_lm, valid = (np.concatenate(x) for x in zip(*to_host(o[:2] for o in outs)))
+            face_lm, valid = (np.concatenate(x)
+                              for x in zip(*to_host((o[:2] for o in outs), self.stats)))
             k = face_lm.shape[0] // n_pad
             keep = np.nonzero(valid[: valid_n * k])[0]
         if len(keep) == 0:
@@ -777,8 +798,8 @@ class FusedPipeline:
         def fetch(outs):
             with self._stage("to_host"):
                 return [np.concatenate(x) for x in zip(*to_host(
-                    (rgb_to_yuv420(crops) if pack else crops, lm, valid, caps)
-                    for crops, lm, valid, caps in outs))]
+                    ((rgb_to_yuv420(crops) if pack else crops, lm, valid, caps)
+                     for crops, lm, valid, caps in outs), self.stats))]
 
         args = self.det._detect_args()
         outs, _caps = dispatch(args)
@@ -818,8 +839,7 @@ class FusedPipeline:
             win = None
             if window is not None:
                 win = to_device(window, dev, np.int32)[None].expand(c, 4).contiguous()
-            outs.append((warp_affine_u8(block, mats, idx, self.output_size, self.border_mode,
-                                        win), ok))
+            outs.append((self._warp(block, mats, idx, self.border_mode, win), ok))
         return outs
 
     @staticmethod
@@ -862,8 +882,8 @@ class FusedPipeline:
             with self._stage("fit_warp"):
                 outs = self._crop_local_sharded(blocks, lm_rows, sel, window)
             with self._stage("to_host"):
-                host = to_host((rgb_to_yuv420(crops) if pack else crops, ok)
-                               for crops, ok in outs)
+                host = to_host(((rgb_to_yuv420(crops) if pack else crops, ok)
+                                for crops, ok in outs), self.stats)
                 # Shard i's faces fill its leading slots; each lands in its
                 # output row straight from the pinned buffer (one host copy).
                 for i, (crops, ok) in enumerate(host):
@@ -949,7 +969,7 @@ class FusedPipeline:
 
         args = self.det._detect_args()
         outs, _caps = dispatch(args)
-        started = [to_host_async(out) for out in outs]
+        started = [to_host_async(out, self.stats) for out in outs]
         return {
             "out": [host for host, _event in started],
             "event": [event for _host, event in started],

@@ -10,7 +10,9 @@ default; :func:`f32_precision` turns both off around the package's own work
 and restores the caller's settings after it.  :func:`to_device` moves host
 data to the card without making the host wait for the card, :func:`to_host_async` and
 :func:`to_host` bring results back the same way, each on the card that
-holds them.
+holds them.  Given a stats object (:class:`.profiling.PipelineStats`),
+they count the bytes they move ("bytes_up", "bytes_home"), and
+:func:`wait_device` times the host blocked on the card, while tracing.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import threading
 
 import numpy as np
 import torch
+
+from .profiling import tracing
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -41,7 +45,21 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
-def to_device(values, device: torch.device, dtype=None) -> torch.Tensor:
+def wait_device(stats):
+    """The span "wait_device" of ``stats`` (a no-op for None, or while not
+    tracing): opened wherever the host blocks on the card — an event's
+    ``synchronize``, a blocking device→host copy, a ``.cpu()`` of a device
+    result."""
+    return contextlib.nullcontext() if stats is None else stats.span("wait_device")
+
+
+def _count_bytes(stats, name: str, tensors) -> None:
+    """Counts the bytes of ``tensors`` under ``name`` while tracing."""
+    if stats is not None and tracing():
+        stats.count(name, sum(t.numel() * t.element_size() for t in tensors))
+
+
+def to_device(values, device: torch.device, dtype=None, stats=None) -> torch.Tensor:
     """Host data (an array or nested lists) as a tensor on ``device``.
 
     On a CUDA device the data is staged in a pinned buffer from PyTorch's
@@ -52,9 +70,11 @@ def to_device(values, device: torch.device, dtype=None) -> torch.Tensor:
     batch first.  The allocator records the copy on the buffer and reuses
     it only after the copy is done.  Elsewhere the data is wrapped as
     ``torch.from_numpy(...).to(device)``; a read-only array (a cached
-    grid) is copied first.
+    grid) is copied first.  ``stats`` counts the bytes as "bytes_up".
     """
     array = np.asarray(values, dtype, order="C")
+    if stats is not None:
+        stats.count("bytes_up", array.nbytes)
     host = torch.from_numpy(array if array.flags.writeable else array.copy())
     if device.type != "cuda":
         return host.to(device)
@@ -63,7 +83,9 @@ def to_device(values, device: torch.device, dtype=None) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
-def to_host_async(tensors) -> tuple[tuple[torch.Tensor, ...], "torch.cuda.Event | None"]:
+def to_host_async(
+    tensors, stats=None
+) -> tuple[tuple[torch.Tensor, ...], "torch.cuda.Event | None"]:
     """Starts device→host copies of ``tensors``; returns (host tensors, event).
 
     On a CUDA device the copies go into pinned buffers, enqueued with
@@ -71,9 +93,10 @@ def to_host_async(tensors) -> tuple[tuple[torch.Tensor, ...], "torch.cuda.Event 
     (the first tensor's; all must share it), and the returned event is
     recorded on that stream, after them: waiting on it waits for these
     copies whatever the current device is.  CPU tensors come back as they
-    are, with no event.
+    are, with no event.  ``stats`` counts the bytes as "bytes_home".
     """
     device = tensors[0].device
+    _count_bytes(stats, "bytes_home", tensors)
     if device.type != "cuda":
         return tuple(tensors), None
     stream = torch.cuda.current_stream(device)
@@ -87,16 +110,21 @@ def to_host_async(tensors) -> tuple[tuple[torch.Tensor, ...], "torch.cuda.Event 
     return tuple(host), event
 
 
-def to_host(shard_outputs) -> list[tuple[np.ndarray, ...]]:
+def to_host(shard_outputs, stats=None) -> list[tuple[np.ndarray, ...]]:
     """Host arrays of each shard's tuple of tensors, in order.
 
     Every shard's copies are started (:func:`to_host_async`) before the
-    host waits on any of them, so S cards finish their work side by side.
+    host waits on any of them (:func:`wait_device`), so S cards finish
+    their work side by side.  ``stats`` counts the bytes as "bytes_home".
     """
-    started = [to_host_async(tensors) for tensors in shard_outputs]
-    for _host, event in started:
-        if event is not None:
-            event.synchronize()
+    started = []
+    for tensors in shard_outputs:
+        _count_bytes(stats, "bytes_home", tensors)
+        started.append(to_host_async(tensors))
+    with wait_device(stats):
+        for _host, event in started:
+            if event is not None:
+                event.synchronize()
     return [tuple(t.numpy() for t in host) for host, _event in started]
 
 
