@@ -12,9 +12,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    flag), and the host codecs: whether the
    native JPEG decoder built (else the compiler's message), cv2's and
    PIL's versions.
-1. Build the kernels from ``face_crop_plus_tpu_torch/csrc`` (greedy NMS
-   and the warp/gather source, one ``nvcc`` each, in parallel) and print
-   ``ptxas -v`` (registers, shared memory, spills).
+1. Build the kernels from ``face_crop_plus_tpu_torch/csrc`` (greedy NMS,
+   the warp/gather source and the epilogue, one ``nvcc`` each, in
+   parallel) and print ``ptxas -v`` (registers, shared memory, spills).
 2. NMS kernel vs plain on the card: N = 16, K in {168, 256, 512, 1024},
    random, identical, all-invalid, near-threshold, NaN/inf and the
    detector's own top-K boxes at 1024², plus the word edges K in {1, 63,
@@ -37,11 +37,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the library yardstick for constant without windows).
    Then ``gather2d`` (the TPU probe's own function) on the probe's 10
    cases, bitwise equal to ``torch.gather``, timed at 256×256.
+2c. The convolutions' epilogue (``csrc/bn_act.cu``: folded BN, residual,
+   ReLU) vs its plain version: every one of the 69 epilogues of a seeded
+   detector forward at 16×1024², bitwise; edge cases (NaN, ±0, ±inf; every
+   residual kind with and without ReLU; N = 1, odd and tiny planes,
+   unaligned inputs, channel slices, in place); each distinct epilogue's
+   time beside the plain version's and its bound by bytes; the whole
+   forward with the kernel and with the plain passes, bitwise, both timed.
 3. The "largest" slice at full width: ``Cropper(device="cuda",
    output_size=256, resize_size=1024, strategy="largest",
    det_threshold=-1.0, batch_size=16)`` with seeded random-init RetinaFace
    ResNet-50, driven by ``process_images`` on seeded 16×218×178×3 uint8
-   batches; the NMS and warp kernels must launch on every request.
+   batches; the NMS and warp kernels, and bn_act 69 times, must launch on
+   every request.
    Faces/s, the stage split and peak memory are printed, and one profiled
    request's kernel time by name.
 3b. Strategy "all" at full width, same settings: one warm-up and 3 timed
@@ -272,6 +280,7 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -767,6 +776,208 @@ def phase_gather2d(device, clock, card):
                 f"call {call_ms:.6f} ms, torch.gather {lib_ms:.6f} ms, bound "
                 f"{timings[axis]['bound_ms']:.6f} ms ({nbytes} B)")
     return timings
+
+
+def _bn_act_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def _special_planes(rng, shape, device):
+    """Normal floats with NaN, ±0, ±inf and tiny negatives planted."""
+    x = rng.normal(0, 2, shape).astype(np.float32)
+    flat = x.reshape(-1)
+    k = max(1, flat.size // 16)
+    picks = rng.permutation(flat.size)[:6 * k] if flat.size < 96 else rng.integers(0, flat.size, 6 * k)
+    for j, v in enumerate((np.nan, 0.0, -0.0, np.inf, -np.inf, -1e-30)):
+        flat[picks[j * k:(j + 1) * k]] = v
+    return torch.from_numpy(x).to(device)
+
+
+def _special_bn(rng, c, device):
+    from face_crop_plus_tpu_torch.ops.nn import FoldedBatchNorm
+
+    bn = FoldedBatchNorm(c)
+    scale = rng.uniform(-1.5, 1.5, c).astype(np.float32)
+    bias = rng.normal(0, 0.5, c).astype(np.float32)
+    scale[::7], bias[1::5], bias[2::5] = 0.0, 0.0, -0.0
+    bn.scale.copy_(torch.from_numpy(scale))
+    bn.bias.copy_(torch.from_numpy(bias))
+    return bn.to(device)
+
+
+def _bn_act_bytes(numel: int, kind: str) -> int:
+    """Bytes the epilogue must move: x read and y written, the residual
+    (or the downsample's input) read."""
+    return 4 * numel * (2 + (kind != "none"))
+
+
+def _device_ms(fn, clock, device, reps: int = 20) -> float:
+    """Device ms a call from HBM: the profiler's kernel time of ``reps``
+    calls (the wrapper's host time between small launches left out), each
+    after a 128 MB fill that evicts the 50 MB L2 (the fill's kernel not
+    counted), after a warm-up; the host clock in the rehearsal."""
+    if device.type != "cuda":
+        return clock.ms(fn, reps=3)
+    flush = torch.empty(2**25, device=device)
+
+    def cold():
+        flush.fill_(1.0)
+        fn()
+
+    cold()
+    rows = device_kernels(cold, reps=reps)
+    return sum(r[1] for r in rows if "FillFunctor" not in r[0]) / reps / 1e3
+
+
+def phase2c_bn_act(device, clock, card, rehearse):
+    """The convolutions' epilogue (``csrc/bn_act.cu``) against its plain
+    version on the card.
+
+    (a) Every epilogue of one seeded detector forward at 16×1024² (tamed
+    weights), the kernel's output bitwise against the plain version on a
+    copy of the same inputs.  (b) Edge cases on planted NaN, ±0 and ±inf:
+    every residual kind with and without ReLU at N = 1, odd and tiny planes,
+    a plane longer than one unit, unaligned inputs and channel slices, in
+    place.  (c) Each distinct epilogue of (a) timed from a cold L2 (the
+    profiler's device time of the kernel into a separate buffer, and of the
+    plain version's kernels), beside its bound by bytes; summed over the
+    forward's launches.  (d) The whole forward with
+    the kernel and with the plain passes patched in, in the package's f32
+    (TF32 off): outputs bitwise equal, device times (median of 5 by CUDA
+    events).
+
+    Returns the numbers of the kernels line.
+    """
+    from face_crop_plus_tpu_torch.models import backbones, detection
+    from face_crop_plus_tpu_torch.ops import nn as nn_ops
+    from face_crop_plus_tpu_torch.ops.cuda import bn_act as kern
+    from face_crop_plus_tpu_torch.utils.device import f32_precision
+
+    n, hw = (2, 64) if rehearse else (16, 1024)
+    start_launches = kern.launches
+    net = detection.RetinaFaceNet()
+    net.load_state_dict(tamed_state_dict(net, seed=3))
+    net = net.to(device).eval().requires_grad_(False)
+    x_in = torch.from_numpy(
+        np.random.default_rng(31).normal(0, 60, (n, 3, hw, hw)).astype(np.float32)).to(device)
+
+    # (a) every epilogue of one forward.
+    real = nn_ops.bn_act
+    seen = []
+
+    def spy(x, bn, relu=False, residual=None, residual_bn=None, out=None):
+        kind = "none" if residual is None else "plain" if residual_bn is None else "affine"
+        want = nn_ops.bn_act_plain(x.clone(), bn, relu, residual, residual_bn)
+        got = real(x, bn, relu, residual, residual_bn, out)
+        same = torch.equal(_bn_act_bits(got), _bn_act_bits(want))
+        seen.append((tuple(x.shape), relu, kind, out is not None, same))
+        return got
+
+    with torch.no_grad(), f32_precision(), mock.patch.object(backbones, "bn_act", spy), \
+            mock.patch.object(detection, "bn_act", spy):
+        net(x_in)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    bad = [s for s in seen if not s[-1]]
+    log(f"  (a) {len(seen)} epilogues of one {n}x{hw}² forward: "
+        f"{len(seen) - len(bad)} bitwise equal to the plain version")
+    if bad or len(seen) != 69:
+        raise SystemExit(f"FAIL: bn_act kernel != plain at {bad[:3]} ({len(seen)} epilogues)")
+
+    # (b) edge cases.
+    rng = np.random.default_rng(32)
+    cases = 0
+    for shape in ((1, 7, 9, 11), (3, 5, 1, 1), (2, 3, 67, 129), (1, 2, 1, 4099),
+                  (1, 64, 64, 64)):
+        for kind in ("none", "plain", "affine"):
+            for relu in (False, True):
+                for mode in ("in place", "slice", "unaligned"):
+                    c = shape[1]
+                    numel = int(np.prod(shape))
+                    if mode == "unaligned":
+                        x = _special_planes(rng, (numel + 1,), device)[1:].view(shape)
+                    else:
+                        x = _special_planes(rng, shape, device)
+                    bn = _special_bn(rng, c, device)
+                    res = None if kind == "none" else _special_planes(rng, shape, device)
+                    res_bn = _special_bn(rng, c, device) if kind == "affine" else None
+                    want = nn_ops.bn_act_plain(x.clone(), bn, relu, res, res_bn)
+                    out = None
+                    if mode == "slice":
+                        big = torch.full((shape[0], c + 4, *shape[2:]), 7.0, device=device)
+                        out = big[:, 1:1 + c]
+                    got = nn_ops.bn_act(x, bn, relu=relu, residual=res, residual_bn=res_bn,
+                                        out=out)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    ok = torch.equal(_bn_act_bits(got), _bn_act_bits(want))
+                    if mode == "slice":
+                        ok = ok and bool((big[:, :1] == 7).all()) and bool((big[:, 1 + c:] == 7).all())
+                    elif not rehearse:
+                        ok = ok and got.data_ptr() == x.data_ptr()
+                    if not ok:
+                        raise SystemExit(f"FAIL: bn_act kernel != plain at {shape} {kind} "
+                                         f"relu={relu} {mode}")
+                    cases += 1
+    log(f"  (b) {cases} edge cases (NaN, ±0, ±inf; N = 1, odd and tiny planes, unaligned "
+        "inputs, slices, in place): bitwise equal")
+
+    # (c) each distinct epilogue timed.
+    configs = {}
+    for shape, relu, kind, _sliced, _same in seen:
+        configs[shape, relu, kind] = configs.get((shape, relu, kind), 0) + 1
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for (shape, relu, kind), count in configs.items():
+        x = torch.randn(shape, device=device)
+        bn = _special_bn(rng, shape[1], device)
+        res = None if kind == "none" else torch.randn(shape, device=device)
+        res_bn = _special_bn(rng, shape[1], device) if kind == "affine" else None
+        y = torch.empty_like(x)
+        ms = _device_ms(lambda: nn_ops.bn_act(x, bn, relu=relu, residual=res,  # noqa: B023
+                                              residual_bn=res_bn, out=y),  # noqa: B023
+                        clock, device)
+        plain_ms = _device_ms(lambda: nn_ops.bn_act_plain(x, bn, relu, res, res_bn),  # noqa: B023
+                              clock, device)
+        nbytes = _bn_act_bytes(x.numel(), kind)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append(dict(shape=list(shape), relu=relu, residual=kind, launches=count,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                         ("bytes", nbytes)):
+            tot[key] += count * val
+        log(f"  [{card}] {tuple(shape)} relu={relu} residual={kind} x{count}: kernel "
+            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
+            f"({100 * bound_ms / ms:.2f} % of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+        del x, res, y
+    log(f"  [{card}] (c) one forward's 69 epilogues: kernel {tot['ms']:.6f} ms, plain "
+        f"{tot['plain_ms']:.6f} ms, bound {tot['bound_ms']:.6f} ms ({tot['bytes']} B; "
+        f"{100 * tot['bound_ms'] / tot['ms']:.2f} % of the bound)")
+
+    # (d) the whole forward, kernel against plain passes.
+    def forward_ms(reps):
+        times = []
+        for _ in range(reps):
+            times.append(clock.ms(lambda: net(x_in), reps=1, warmup=0))
+        return float(np.median(times))
+
+    with torch.no_grad(), f32_precision():  # the package's precision: TF32 off
+        got = net(x_in)
+        fused_ms = forward_ms(5)
+        with mock.patch.object(backbones, "bn_act", nn_ops.bn_act_plain), \
+                mock.patch.object(detection, "bn_act", nn_ops.bn_act_plain):
+            want = net(x_in)
+            plain_fwd_ms = forward_ms(5)
+    same = all(torch.equal(_bn_act_bits(g), _bn_act_bits(w)) for g, w in zip(got, want))
+    log(f"  [{card}] (d) {n}x{hw}² forward: with the kernel {fused_ms:.6f} ms, with the plain "
+        f"passes {plain_fwd_ms:.6f} ms (medians of 5); outputs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("FAIL: the forward with the kernel != the forward with plain passes")
+    launches = kern.launches - start_launches
+    if not rehearse and launches == 0:
+        raise SystemExit("FAIL: the bn_act kernel did not launch")
+    return dict(tot, launches=launches, cases=cases, forward_ms=fused_ms,
+                forward_plain_ms=plain_fwd_ms, rows=rows, shape=f"{n}x{hw}²")
 
 
 # ---------------------------------------------------------------------------
@@ -3812,6 +4023,34 @@ def gather_row(gtimings, launches) -> dict:
     }
 
 
+def bn_act_row(t, launches_largest, launches) -> dict:
+    """The ``kernels`` entry of bn_act: one forward's 69 epilogues (phase
+    2c (c)), the launches of every phase."""
+    return {
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "face_crop_plus_tpu_torch/csrc/bn_act.cu",
+        "replaces": None,
+        "replaces_none_because": "XLA fuses BN, the residual add and ReLU into the convolutions",
+        "launches": launches,
+        "launches_check": t["launches"],
+        "launches_largest": launches_largest,
+        "max_abs_err": 0.0,
+        "bitwise_equal": True,
+        "edge_cases": t["cases"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "bytes": t["bytes"],
+        "library_ms": None,
+        "shape": f"the 69 epilogues of one {t['shape']} RetinaFace forward, summed",
+        "forward_ms": t["forward_ms"],
+        "forward_plain_ms": t["forward_plain_ms"],
+        "cases": t["rows"],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -3836,6 +4075,7 @@ def main() -> int:
     os.environ["FCPT_CACHE_DIR"] = os.path.join(ROOT, "face_crop_plus_tpu_torch", "_build", "no-weights")
 
     from face_crop_plus_tpu_torch import Cropper
+    from face_crop_plus_tpu_torch.ops.cuda import bn_act as bn_kern
     from face_crop_plus_tpu_torch.ops.cuda import build
     from face_crop_plus_tpu_torch.ops.cuda import nms as kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
@@ -3876,7 +4116,7 @@ def main() -> int:
         log("phase 1: build skipped (rehearsal: no nvcc)")
     else:
         t0 = time.perf_counter()
-        sources = ("nms.cu", "warp.cu")
+        sources = ("nms.cu", "warp.cu", "bn_act.cu")
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source at once
             list(pool.map(build.load_library, sources))
         log(f"phase 1: built csrc/{{{','.join(sources)}}} in parallel in "
@@ -3918,6 +4158,11 @@ def main() -> int:
     if not rehearse and gather_launches == 0:
         raise SystemExit("FAIL: the gather2d kernel did not launch")
 
+    # -- phase 2c ----------------------------------------------------------
+    log("phase 2c: the convolutions' epilogue (bn_act) vs plain: every epilogue of one "
+        "forward, edge cases, times, the forward with and without the kernel")
+    bn_t = phase2c_bn_act(device, clock, card, rehearse)
+
     # -- phase 3 -----------------------------------------------------------
     log(f"phase 3: process_images, {n}x{src_hw[0]}x{src_hw[1]}x3 → {resize}² "
         f"RetinaFace ResNet-50 → {out_size}² crops")
@@ -3930,18 +4175,22 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
     kern.launches = 0
     warp_kern.launches = 0
+    bn_start = bn_kern.launches
     per_request = []
     warp_per_request = []
+    bn_per_request = []
     seconds = []
     faces = []
     for r, batch in enumerate(batches[:5]):
         before = kern.launches
         before_warp = warp_kern.launches
+        before_bn = bn_kern.launches
         t0 = time.perf_counter()
         crops, indices, groups = cropper.process_images(batch)
         seconds.append(time.perf_counter() - t0)
         per_request.append(kern.launches - before)
         warp_per_request.append(warp_kern.launches - before_warp)
+        bn_per_request.append(bn_kern.launches - before_bn)
         faces.append(len(indices))
         if crops.shape != (n, out_size, out_size, 3) or crops.dtype != np.uint8:
             raise SystemExit(f"FAIL: request {r}: crops {crops.shape} {crops.dtype}")
@@ -3949,12 +4198,15 @@ def main() -> int:
             raise SystemExit(f"FAIL: request {r}: indices {indices}")
     main_launches = kern.launches
     warp_main_launches = warp_kern.launches
+    bn_main_launches = bn_kern.launches - bn_start
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     log(f"  K1 launches per request {per_request}, warp launches per request "
         f"{warp_per_request} (pre_topk now {cropper.det_model.pre_topk}); request seconds "
         + ", ".join(f"{s:.6f}" for s in seconds))
-    if not rehearse and (min(per_request) < 1 or min(warp_per_request) < 1):
-        raise SystemExit("FAIL: the NMS or warp kernel did not launch on every request")
+    log(f"  bn_act launches per request {bn_per_request}")
+    if not rehearse and (min(per_request) < 1 or min(warp_per_request) < 1
+                         or min(bn_per_request) < 69):
+        raise SystemExit("FAIL: the NMS, warp or bn_act kernel did not launch on every request")
     timed = seconds[1:]
     fps = sum(faces[1:]) / sum(timed)
     log(f"  [{card}] {fps:.6f} faces/s over {len(timed)} requests after one "
@@ -4083,7 +4335,8 @@ def main() -> int:
         "bound_ms_k256": t_256["bound_ms"],
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
                all_warp, p5, p6, p7, p8, p9, p10, p11, p12),
-        gather_row(gtimings, gather_launches)]}
+        gather_row(gtimings, gather_launches),
+        bn_act_row(bn_t, bn_main_launches, bn_kern.launches)]}
     log(json.dumps(kernels))
     if rehearse:
         log("rehearsal finished: every phase ran on the CPU; no ok line")

@@ -18,11 +18,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.nn import FoldedBatchNorm, conv, leaky_relu, max_pool
+from ..ops.nn import FoldedBatchNorm, bn_act, conv, max_pool
 
 
 class Bottleneck(nn.Module):
-    """Torchvision Bottleneck: 1x1 → 3x3(stride) → 1x1(×4) + identity."""
+    """Torchvision Bottleneck: 1x1 → 3x3(stride) → 1x1(×4) + identity.
+
+    Each convolution's BN and ReLU, and the last one's residual add (with
+    the downsample's BN), are one :func:`..ops.nn.bn_act` each.
+    """
 
     def __init__(self, in_ch: int, width: int, stride: int, project: bool):
         super().__init__()
@@ -42,11 +46,13 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = leaky_relu(self.bn1(self.conv1(x)))
-        out = leaky_relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return leaky_relu(out + identity)
+        out = bn_act(self.conv1(x), self.bn1, relu=True)
+        out = bn_act(self.conv2(out), self.bn2, relu=True)
+        out = self.conv3(out)
+        if self.downsample is None:
+            return bn_act(out, self.bn3, relu=True, residual=x)
+        proj, proj_bn = self.downsample
+        return bn_act(out, self.bn3, relu=True, residual=proj(x), residual_bn=proj_bn)
 
 
 def _stage(in_ch: int, width: int, depth: int, stride: int) -> nn.Sequential:
@@ -68,7 +74,7 @@ class ResNet50Features(nn.Module):
         self.layer4 = _stage(1024, 512, 3, stride=2)
 
     def forward(self, x: torch.Tensor):
-        x = leaky_relu(self.bn1(self.conv1(x)))
+        x = bn_act(self.conv1(x), self.bn1, relu=True)
         x = max_pool(x, window=3, stride=2, padding=1)
         x = self.layer1(x)
         c3 = self.layer2(x)

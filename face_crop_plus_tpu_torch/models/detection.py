@@ -35,7 +35,7 @@ from torch import nn
 
 from ..ops.anchors import anchor_grid, num_anchors
 from ..ops.nms import select_faces
-from ..ops.nn import FoldedBatchNorm, conv, leaky_relu, resize_nearest, softmax
+from ..ops.nn import FoldedBatchNorm, bn_act, conv, resize_nearest, softmax
 from ..utils.batching import next_pow2
 from ..parallel.mesh import Replicas, pad_to_multiple, shard_batch
 from ..utils.device import (
@@ -75,7 +75,10 @@ SHARD_PAD_SIZES = (1, 8, 16)
 
 
 class ConvBN(nn.Sequential):
-    """Conv → folded BN (→ ReLU): keys ``<name>.0.weight``, ``<name>.1.scale``."""
+    """Conv → folded BN (→ ReLU): keys ``<name>.0.weight``, ``<name>.1.scale``.
+
+    The BN and ReLU are one :func:`..ops.nn.bn_act`.
+    """
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=None, act=True):
         super().__init__(
@@ -85,16 +88,23 @@ class ConvBN(nn.Sequential):
         self.act = act
 
     def forward(self, x):
-        x = super().forward(x)
-        return leaky_relu(x) if self.act else x
+        return bn_act(self[0](x), self[1], relu=self.act)
 
 
 class SSH(nn.Module):
-    """SSH context module: parallel 3x3 / 5x5 / 7x7 receptive-field branches."""
+    """SSH context module: parallel 3x3 / 5x5 / 7x7 receptive-field branches.
+
+    The ReLU of the concatenated branches is per element, so the epilogue
+    of each branch's last convolution applies it and writes into the
+    branch's channel slice of the output.  The output is allocated after
+    the last convolution, so no convolution's workspace meets it: each
+    convolution runs beside the memory it ran beside with ``torch.cat``.
+    """
 
     def __init__(self, in_ch: int = 256, out_ch: int = 256):
         super().__init__()
         quarter = out_ch // 4
+        self.out_ch = out_ch
         self.conv3X3 = ConvBN(in_ch, out_ch // 2, 3, act=False)
         self.conv5X5_1 = ConvBN(in_ch, quarter, 3)
         self.conv5X5_2 = ConvBN(quarter, quarter, 3, act=False)
@@ -102,11 +112,17 @@ class SSH(nn.Module):
         self.conv7x7_3 = ConvBN(quarter, quarter, 3, act=False)
 
     def forward(self, x):
-        b3 = self.conv3X3(x)
+        b3 = self.conv3X3[0](x)
         b5_1 = self.conv5X5_1(x)
-        b5 = self.conv5X5_2(b5_1)
-        b7 = self.conv7x7_3(self.conv7X7_2(b5_1))
-        return leaky_relu(torch.cat([b3, b5, b7], dim=1))
+        b5 = self.conv5X5_2[0](b5_1)
+        b7 = self.conv7x7_3[0](self.conv7X7_2(b5_1))
+        n, _, h, w = b3.shape
+        out = b3.new_empty((n, self.out_ch, h, w))
+        lo = 0
+        for branch, y in ((self.conv3X3, b3), (self.conv5X5_2, b5), (self.conv7x7_3, b7)):
+            bn_act(y, branch[1], relu=True, out=out[:, lo:lo + y.shape[1]])
+            lo += y.shape[1]
+        return out
 
 
 class FPN(nn.Module):

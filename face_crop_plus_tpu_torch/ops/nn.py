@@ -31,6 +31,11 @@ bfloat16 when its caller asks) rounds where the JAX one rounds:
 
 In float32 every cast is the identity, so the default path computes what
 it computed before ``compute_dtype`` existed.
+
+:func:`bn_act` is a convolution's epilogue (folded BN, an optional
+residual, an optional ReLU): in float32 on a card one pass of a
+hand-written kernel with the plain composition's bits, else that
+composition (:func:`bn_act_plain`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import to_device
+from ..utils.profiling import count_in_span
+from .cuda.bn_act import bn_act_cuda
 
 
 def conv(
@@ -76,6 +83,65 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     if negative_slope == 0.0:
         return torch.relu(x)
     return torch.where(x >= 0, x, x * negative_slope)
+
+
+def bn_act_plain(
+    x: torch.Tensor,
+    bn: FoldedBatchNorm,
+    relu: bool = False,
+    residual: torch.Tensor | None = None,
+    residual_bn: FoldedBatchNorm | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`bn_act` as the modules compose it: ``bn(x)``, then the
+    residual (``residual_bn(residual)`` when given) added, then ReLU; the
+    result copied into ``out`` when one is given."""
+    y = bn(x)
+    if residual is not None:
+        y = y + (residual if residual_bn is None else residual_bn(residual))
+    if relu:
+        y = leaky_relu(y)
+    return y if out is None else out.copy_(y)
+
+
+def bn_act(
+    x: torch.Tensor,
+    bn: FoldedBatchNorm,
+    relu: bool = False,
+    residual: torch.Tensor | None = None,
+    residual_bn: FoldedBatchNorm | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """A convolution's epilogue: folded BN, an optional residual, an
+    optional ReLU.
+
+    ``relu?((x * bn.scale + bn.bias) + r)`` per element of an NCHW tensor,
+    with ``r`` absent, ``residual``, or ``residual_bn(residual)``.  A
+    float32 tensor on a card goes through one launch of the hand-written
+    kernel (:func:`.cuda.bn_act.bn_act_cuda`), which computes the same bits
+    as :func:`bn_act_plain` and writes over ``x`` unless ``out`` is given:
+    ``x`` is a convolution's output that its caller reads no more.  Any
+    other device or dtype runs :func:`bn_act_plain`, whose ops round as
+    the activation dtype's ATen ops do.  ``out``, when given, receives the
+    result: an (N, C, H, W) tensor with contiguous planes, such as a
+    channel slice of a concatenated output.
+
+    While tracing, counts ``bn_act.fused`` or ``bn_act.plain`` (one call a
+    launch or composition, the output's elements as items) into the open
+    span's stats.
+    """
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        y = bn_act_cuda(
+            x, bn.scale, bn.bias, relu, residual,
+            None if residual_bn is None else residual_bn.scale,
+            None if residual_bn is None else residual_bn.bias,
+            out,
+        )
+        count_in_span("bn_act.fused", y.numel())
+        return y
+    y = bn_act_plain(x, bn, relu, residual, residual_bn, out)
+    count_in_span("bn_act.plain", y.numel())
+    return y
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:

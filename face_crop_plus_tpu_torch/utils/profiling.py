@@ -21,7 +21,8 @@ nothing.  On, every span (:meth:`PipelineStats.span`, and the stages):
 Spans named in :data:`HOST_SPLIT` also add ``<name>.host``: their duration
 less the :data:`WAIT` spans nested in them on their thread, the time the
 host worked rather than waited on the card.  Counters
-(:meth:`PipelineStats.count`) add one call and their items, no seconds.
+(:meth:`PipelineStats.count`, or :func:`count_in_span` into the open
+span's stats) add one call and their items, no seconds.
 A request id comes from the span that opens the request (``request``,
 ``batch``, ``stream.dispatch``) and passes to every span opened inside it
 on the same thread (a ``contextvars`` variable).
@@ -89,6 +90,18 @@ def take_timeline() -> list:
 def _keep(record) -> None:
     if len(_TIMELINE) < TIMELINE_MAX:
         _TIMELINE.append(record)
+
+
+def count_in_span(name: str, items: int = 1) -> None:
+    """While tracing, :meth:`PipelineStats.count` into the stats of the
+    span open on this thread, for code that holds no stats of its own (the
+    networks' layers count inside ``det_net``); on the timeline alone where
+    no span is open."""
+    if _PROFILER._is_profiler_enabled:
+        up = _OPEN.get()
+        if up is not None:
+            up.stats._add(name, 0.0, items)
+        _keep(Count(name, items, {}))
 
 
 class Span:
@@ -253,7 +266,8 @@ class PipelineStats:
         for name, sec in sorted(self.seconds.items(), key=lambda kv: -kv[1]):
             items = self.items[name]
             rate = f"{items / sec:10.1f}" if items and sec > 0 else "         -"
-            lines.append(f"{name:<16}{sec:9.3f}{self.calls[name]:8d}{items:8d}{rate}")
+            # A space before each count keeps large ones (bn_act's elements) apart.
+            lines.append(f"{name:<16}{sec:9.3f} {self.calls[name]:7d} {items:7d}{rate}")
         return "\n".join(lines)
 
     def as_dict(self) -> dict:

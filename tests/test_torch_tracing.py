@@ -234,7 +234,8 @@ class _Flag:
         return False
 
 
-@pytest.mark.parametrize("site", ["span", "count", "locked", "wait_device", "stage_span"])
+@pytest.mark.parametrize("site", ["span", "count", "count_in_span", "locked", "wait_device",
+                                  "stage_span"])
 def test_a_span_site_off_reads_one_flag(monkeypatch, site):
     flag = _Flag()
     monkeypatch.setattr(profiling, "_PROFILER", flag)
@@ -245,6 +246,7 @@ def test_a_span_site_off_reads_one_flag(monkeypatch, site):
     out = {
         "span": lambda: stats.span("network", 3),
         "count": lambda: stats.count("warp_crops", 16, size=(32, 32)),
+        "count_in_span": lambda: profiling.count_in_span("bn_act.fused", 16),
         "locked": lambda: stats.locked(lock),
         "wait_device": lambda: port_device.wait_device(stats),
         "stage_span": lambda: pipe._stage("select"),
@@ -252,7 +254,7 @@ def test_a_span_site_off_reads_one_flag(monkeypatch, site):
     assert flag.reads == 1
     if site == "locked":
         assert out is lock
-    elif site != "count":
+    elif not site.startswith("count"):
         assert out is profiling._NULL
     assert profiling.take_timeline() == [] and stats.as_dict() == {}
 
