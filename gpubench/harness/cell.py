@@ -13,8 +13,11 @@ An entry is ``entries/<entry>.py``, named by the traffic file's
   leaves the package's (the control);
 * ``judge(limits, nets)``: (correct, {number: (value, limit)}).
 
-The configuration's reference pipeline is
-``reference/pipelines/<detector>_<strategy>.py`` (see that package).
+The configuration's reference pipeline is the module of
+``reference/pipelines/`` that :func:`.spec.pipeline_name` names (see that
+package); an entry gets the reference's crops from
+:meth:`Cell.reference_crops`, which hands them to the pipeline's own
+``crops`` when it has one.
 """
 
 from __future__ import annotations
@@ -108,17 +111,35 @@ class Cell:
 
     def reference_crops(self, nets: dict, images: torch.Tensor, offset=None, windows=None):
         """The reference's uint8 crops (F, Ho, Wo, 3) and image indices (F,)
-        of a uniform uint8 batch on the device: the strategy's faces (their
-        landmarks less ``offset``), the similarity fit and the warp (inside
-        each image's ``windows`` row, when given)."""
-        out_size = (self.kw["output_size"],) * 2
+        of a uniform uint8 batch on the device, in the package's order.
+
+        The pipeline's ``crops(cell, nets, images, offset, windows)`` when
+        it has one (a pipeline whose crops do not all come from the source
+        images: a gated enhancer's come from its enhanced rows); else the
+        strategy's faces (their landmarks less ``offset``), warped from
+        ``images`` by :meth:`warp_faces` (inside each image's ``windows``
+        row, when given).
+        """
+        if hasattr(self.pipeline, "crops"):
+            return self.pipeline.crops(self, nets, images, offset, windows)
         interim = (self.kw["resize_size"],) * 2
         lm, idx = self.pipeline.faces(nets, self.model, images, interim, self.kw["det_threshold"])
         if offset is not None:
             lm = lm - offset
+        return self.warp_faces(images, lm, idx, None if windows is None else windows[idx])
+
+    def warp_faces(self, images: torch.Tensor, lm: torch.Tensor, idx: torch.Tensor,
+                   windows=None):
+        """The crops of faces in a uint8 (N, H, W, 3) batch on the device:
+        each face's landmarks ``lm`` (F, 5, 2) in ``images``' pixels fitted
+        to the cell's target landmarks, and warped from its row ``idx``
+        (F,) inside its ``windows`` row (F, 4) when given.  Faces without a
+        sound fit are dropped.  Returns (uint8 crops (F', Ho, Wo, 3), image
+        indices (F',) int64) on the host."""
+        out_size = (self.kw["output_size"],) * 2
         m, ok = fit_similarity(lm, target_landmarks(out_size, self.kw["face_factor"]))
         m, idx = m[ok], idx[ok]
-        win = None if windows is None else windows[idx]
+        win = None if windows is None else windows[ok]
         crops = warp_constant(images, m, idx.to(torch.int32), out_size, win)
         return crops.cpu().numpy(), idx.cpu().numpy().astype(np.int64)
 

@@ -1,8 +1,9 @@
 """A cell of ``BENCHMARK.json`` and the files it is made of, found by name.
 
-* the configuration: the file its ``configs`` entry names, and the
-  reference pipeline its model and strategy name
-  (``reference/pipelines/<detector>_<strategy>.py``);
+* the configuration: the file its ``configs`` entry names, and its
+  reference pipeline (``reference/pipelines/<name>.py``): the module that
+  the file's top-level ``"reference"`` names, or else the one its model
+  and strategy name (``<detector>_<strategy>``);
 * the traffic mix: ``traffic/<traffic>.json``, and the entry it drives
   (``entries/<entry>.py``);
 * the limits of its comparison: ``limits/<workload>.json``;
@@ -58,7 +59,14 @@ def _rehearsed(data: dict) -> dict:
 
 
 def pipeline_name(config: dict) -> str:
-    """The configuration's reference pipeline: ``<detector>_<strategy>``."""
+    """The configuration's reference pipeline: its ``"reference"`` when the
+    file names one (a configuration with more networks than the detector:
+    an enhancer, a parser), else ``<detector>_<strategy>``."""
+    if "reference" in config:
+        name = config["reference"]
+        if not isinstance(name, str) or not name.isidentifier():
+            raise ValueError(f"the configuration's reference {name!r} is not a module name")
+        return name
     return f"{config['model']['detector'].lower()}_{config['cropper']['strategy']}"
 
 
@@ -72,6 +80,8 @@ def resolve(bench: dict, workload: str, root: str, rehearse: bool = False) -> Ce
     Raises:
         KeyError: When ``BENCHMARK.json`` has no such cell or configuration.
         FileNotFoundError: When one of the cell's files is missing.
+        ValueError: When the configuration's ``"reference"`` is not a
+            module name.
     """
     entry = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if entry is None:

@@ -1,8 +1,8 @@
 """The traced run: ranges and launch shapes around calls into the package,
 ``torch.profiler`` over the window, and the reduction of its trace.
 
-The spans are opened from this file around the package's own functions
-(no span lives inside the package yet):
+These spans are opened from this file around the package's own
+functions:
 
 * ``det_net`` around each RetinaFace forward
   (``models/detection.py: retinaface_forward``), counting the rows and
@@ -17,7 +17,10 @@ The spans are opened from this file around the package's own functions
   ``ops/cuda/warp.py``) record each launch's (N, K) and crop count.
 
 The device's busy time and each kernel's time are read from the
-profiler's Chrome trace: kernels, copies and sets by device.
+profiler's Chrome trace: kernels, copies and sets by device.  The
+package's own network spans (``det_net``, ``enh_net``, ``parse_net``,
+each with a CUDA event pair) are read from its timeline after the window
+(:func:`network_spans`).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from ..counts import kernels as kernel_counts
 from ..counts import retinaface as retinaface_counts
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: The package's spans around its networks' forwards (``utils/profiling.py``).
+NETWORK_SPANS = ("det_net", "enh_net", "parse_net")
 
 
 class Work:
@@ -170,6 +175,25 @@ class Profile:
         finally:
             os.remove(self.path)
         self.summary = summarize(events, self.host_spans, t0)
+
+
+def network_spans(records: list) -> dict:
+    """Each network span that ran → {``seconds``: its device time summed
+    from each span's CUDA event pair, None where a span has none (the
+    CPU); ``rows``: the rows it ran}, from the package's timeline
+    (``profiling.take_timeline()``, once the devices synchronised)."""
+    out = {}
+    for r in records:
+        if r.name not in NETWORK_SPANS:
+            continue
+        ms = r.device_ms()
+        net = out.setdefault(r.name, {"seconds": 0.0, "rows": 0})
+        net["rows"] += r.items
+        if ms is None or net["seconds"] is None:
+            net["seconds"] = None
+        else:
+            net["seconds"] += ms * 1e-3
+    return out
 
 
 def _union(intervals):

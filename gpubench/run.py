@@ -12,6 +12,20 @@ reference judges a sample of what the window produced.  The last line of
 standard output is one JSON object; the last lines of standard error are
 the numbers compared, each beside its limit.
 
+Each metric is ``read(ctx)`` of its file.  The untraced ``ctx`` holds
+``faces``, ``window_s``, ``setup_s`` and ``latencies`` (request entries).
+The traced one holds ``window_s`` (the profiled window), ``cards``,
+``summary`` (:func:`gpubench.harness.trace.summarize`, with ``span_s``:
+the harness's ``det_net`` wrapper's device seconds), ``work`` (the
+wrappers' counts), ``stats`` (the window's ``Cropper.stats`` delta),
+``real_flop`` (the reference pipeline's ``window_flop(run, stats)``, or
+the sum of its ``image_flop`` over the images done), ``peak_bytes``,
+``power_limit_w``, the cell's ``model`` block and cropper settings
+``kw``, and ``net_s``: each of the package's network spans that ran
+(``det_net``, ``enh_net``, ``parse_net``) → its ``seconds`` on the device
+(None where a span has no device events: the CPU) and its ``rows``
+(:func:`gpubench.harness.trace.network_spans`).
+
 Exit codes: 0 with a result; 2 when a file of the benchmark or the package
 is missing; 3 without the cards the cell needs; 4 when a forbidden module
 (JAX or the JAX package) was loaded.  ``--rehearse-cpu`` runs the cell on
@@ -113,7 +127,8 @@ def main(argv=None, start: float = T_START) -> int:
     stats_before = run.cropper.stats.as_dict()
     summary = work = window = None
     if args.trace:
-        from gpubench.harness.trace import Profile, Work, instrument
+        from face_crop_plus_tpu_torch.utils.profiling import take_timeline
+        from gpubench.harness.trace import Profile, Work, instrument, network_spans
 
         work = Work()
         prof = Profile(os.path.join(ROOT, ".gpubench", "trace.json"), work.host_spans)
@@ -121,6 +136,7 @@ def main(argv=None, start: float = T_START) -> int:
             run.run(args.seconds)
         summary, window = prof.summary, prof.window_s
         summary["span_s"] = work.device_seconds()
+        net_s = network_spans(take_timeline())
     else:
         run.run(args.seconds)
     stats = _stats_delta(stats_before, run.cropper.stats.as_dict())
@@ -153,15 +169,20 @@ def main(argv=None, start: float = T_START) -> int:
     else:
         from gpubench.counts import PEAK_F32_FLOP_PER_S
 
-        interim = (run.kw["resize_size"],) * 2
-        real_flop = sum(run.pipeline.image_flop(h, w, interim, run.model)
-                        for h, w in run.images_done())
+        if hasattr(run.pipeline, "window_flop"):
+            real_flop = run.pipeline.window_flop(run, stats)
+        else:
+            interim = (run.kw["resize_size"],) * 2
+            real_flop = sum(run.pipeline.image_flop(h, w, interim, run.model)
+                            for h, w in run.images_done())
         ctx = types.SimpleNamespace(
             window_s=window, cards=len(devices), summary=summary, work=work, stats=stats,
-            real_flop=real_flop, peak_bytes=peak, power_limit_w=env.power_limit_w(cards))
+            real_flop=real_flop, peak_bytes=peak, power_limit_w=env.power_limit_w(cards),
+            model=run.model, kw=run.kw, net_s=net_s)
         print(f"traced: {window:.6f} s, counted {real_flop} FLOP of real rows; peak "
               f"{PEAK_F32_FLOP_PER_S:.3e} FLOP/s at the card's {ctx.power_limit_w} W limit; "
               f"kernel launches {dict(work.launches)}")
+        print(f"network spans: {json.dumps(net_s)}")
         for m in cell.per_layer:
             value = spec.metric_reader(m["name"])(ctx)
             if value is not None:
