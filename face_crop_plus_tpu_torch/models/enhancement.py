@@ -277,7 +277,8 @@ class RRDBNet:
         self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
         self._replicas = None if mesh is None else Replicas(mesh)
-        #: Where the spans "enh_net" and "wait_device" go (the ``Cropper`` hands its own).
+        #: Where the spans "enh_net" and "wait_device" and the counter
+        #: "enh_gate" go (the ``Cropper`` hands its own).
         self.stats = PipelineStats()
 
     def replicas(self) -> tuple:
@@ -391,7 +392,8 @@ class RRDBNet:
             ``images`` with the gated ones enhanced, of the same kind: an
             array or tensor is copied first, a list is rebuilt, and with
             nothing gated (or no image) ``images`` itself comes back.
-            Images without a face are never gated.
+            Images without a face are never gated.  While tracing, counts
+            "enh_gate": the images gated, of the ``judged`` images.
         """
         if pack_out and not isinstance(images, list):
             raise ValueError("pack_out requires list input")
@@ -406,6 +408,7 @@ class RRDBNet:
                 i for i in range(n)
                 if np.isfinite(factors[i]) and factors[i] <= self.min_face_factor
             ]
+        self.stats.count("enh_gate", len(gated), judged=n)
         if not gated:
             return images
 

@@ -613,11 +613,13 @@ class FusedPipeline:
         gated image indices, per-face gated mask).  Each real image's mean
         face factor, measured in interim coordinates against the full
         padded interim area (the reference's quirk), is compared with the
-        enhancer's threshold."""
+        enhancer's threshold.  Counts "enh_gate": the images gated, of the
+        ``judged`` real images."""
         (h, w), (ih, iw) = src_hw, interim_hw
         scale, win = self._interim_window(h, w, ih, iw)
         factors = mean_face_factor(face_lm * scale, indices.tolist(), valid_n, (ih, iw))
         gated = np.nonzero(np.isfinite(factors) & (factors <= self.enh.min_face_factor))[0]
+        self.stats.count("enh_gate", len(gated), judged=valid_n)
         return scale, win, gated, np.isin(indices, gated)
 
     def detect_only(
