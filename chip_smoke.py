@@ -13,7 +13,7 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    native JPEG decoder built (else the compiler's message), cv2's and
    PIL's versions.
 1. Build the kernels from ``face_crop_plus_tpu_torch/csrc`` (greedy NMS,
-   the warp/gather source and the epilogue, one ``nvcc`` each, in
+   the warp/gather source and the two epilogues, one ``nvcc`` each, in
    parallel) and print ``ptxas -v`` (registers, shared memory, spills).
 2. NMS kernel vs plain on the card: N = 16, K in {168, 256, 512, 1024},
    random, identical, all-invalid, near-threshold, NaN/inf and the
@@ -118,7 +118,13 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    landmark-free CLI ``-dt -1 -et 1`` over 16 uniform originals and the
    2400×1800 file: every image enhanced, peak memory.  (f) A diagnostic:
    TF32 allowed inside the enhancer, its time and its level differences
-   from f32.  The phase's wall time.
+   from f32.  (g), run first: the enhancer's convolution epilogue
+   (``csrc/rrdb_act.cu``) on every epilogue of one 1024² forward of the
+   tamed network, bitwise against its plain version and the module's own
+   convolution; edge cases; each distinct epilogue timed from a cold L2
+   beside its bound by bytes; the whole forward against its composition
+   before the kernel (``torch.cat``, ATen passes): bits equal, times,
+   peak memory.  The phase's wall time.
 8. The host path at full width, on phase 5's directory, with
    ``build_status()`` of the native host library printed first (where it
    does not build for want of libjpeg, no host warp, 4:2:0 codec or packed
@@ -812,21 +818,28 @@ def _bn_act_bytes(numel: int, kind: str) -> int:
 
 
 def _device_ms(fn, clock, device, reps: int = 20) -> float:
-    """Device ms a call from HBM: the profiler's kernel time of ``reps``
-    calls (the wrapper's host time between small launches left out), each
-    after a 128 MB fill that evicts the 50 MB L2 (the fill's kernel not
-    counted), after a warm-up; the host clock in the rehearsal."""
+    """Device ms a call from HBM: CUDA events around each of ``reps``
+    calls, each after a 128 MB fill that evicts the 50 MB L2 (outside the
+    events), after a warm-up; the host clock in the rehearsal.  Every
+    launch is enqueued behind a ~20 ms spin kernel, so the wrapper's host
+    time between small launches never shows between the events.  (The
+    profiler's kernel time loses events late in a long process: it saw 11
+    of 20 launches there, reading 160 % of the HBM bound.)"""
     if device.type != "cuda":
         return clock.ms(fn, reps=3)
     flush = torch.empty(2**25, device=device)
-
-    def cold():
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)  # ~20 ms at the H100's ~1.98 GHz
+    for start, end in events:
         flush.fill_(1.0)
+        start.record()
         fn()
-
-    cold()
-    rows = device_kernels(cold, reps=reps)
-    return sum(r[1] for r in rows if "FillFunctor" not in r[0]) / reps / 1e3
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
 def phase2c_bn_act(device, clock, card, rehearse):
@@ -838,9 +851,9 @@ def phase2c_bn_act(device, clock, card, rehearse):
     copy of the same inputs.  (b) Edge cases on planted NaN, ±0 and ±inf:
     every residual kind with and without ReLU at N = 1, odd and tiny planes,
     a plane longer than one unit, unaligned inputs and channel slices, in
-    place.  (c) Each distinct epilogue of (a) timed from a cold L2 (the
-    profiler's device time of the kernel into a separate buffer, and of the
-    plain version's kernels), beside its bound by bytes; summed over the
+    place.  (c) Each distinct epilogue of (a) timed from a cold L2 (device
+    time by CUDA events, :func:`_device_ms`, of the kernel into a separate
+    buffer, and of the plain version's kernels), beside its bound by bytes; summed over the
     forward's launches.  (d) The whole forward with
     the kernel and with the plain passes patched in, in the package's f32
     (TF32 off): outputs bitwise equal, device times (median of 5 by CUDA
@@ -1906,10 +1919,16 @@ def tame_enhancer(model, blocks: int):
     return model
 
 
-def rrdb_macs_per_pixel(net, device) -> int:
+def rrdb_macs_per_pixel(net) -> int:
     """Multiply-adds of one input pixel, from conv hooks on a 16² forward
-    (every convolution is stride 1; the tail's grow with the input)."""
-    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    (every convolution is stride 1; the tail's grow with the input).  The
+    hooks run on a CPU network of ``net``'s depth: in float32 on a card the
+    network calls its convolutions' weights (``rrdb_conv``), not the
+    modules, so no hook would fire there."""
+    from face_crop_plus_tpu_torch.models.enhancement import RRDBNetwork
+
+    twin = RRDBNetwork(len(net.RRDB_trunk))
+    convs = [m for m in twin.modules() if isinstance(m, torch.nn.Conv2d)]
     total = [0]
 
     def hook(m, _inp, out):
@@ -1918,11 +1937,226 @@ def rrdb_macs_per_pixel(net, device) -> int:
     handles = [m.register_forward_hook(hook) for m in convs]
     try:
         with torch.no_grad():
-            net(torch.zeros((1, 3, 16, 16), device=device))
+            twin(torch.zeros((1, 3, 16, 16)))
     finally:
         for h in handles:
             h.remove()
     return total[0] // 256
+
+
+def rrdb_composition_before(net, x):
+    """RRDBNetwork's forward as its modules composed it before the
+    epilogue kernel: each convolution with its bias, each LeakyReLU,
+    ``mul_(0.2)`` and ``add_`` an ATen pass, the dense blocks'
+    ``torch.cat`` (in the layout ``x`` brings, as the modules ran it)."""
+    import torch.nn.functional as F
+
+    from face_crop_plus_tpu_torch.ops.nn import upsample2x_nearest
+
+    def act(t):
+        return F.leaky_relu(t, 0.2, inplace=True)
+
+    def dense(d, t):
+        c = t
+        for k in range(1, 5):
+            c = torch.cat([c, act(getattr(d, f"conv{k}")(c))], dim=1)
+        return d.conv5(c).mul_(0.2).add_(t)
+
+    fea = net.conv_first(x)
+    t = fea
+    for b in net.RRDB_trunk:
+        t = dense(b.RDB3, dense(b.RDB2, dense(b.RDB1, t))).mul_(0.2).add_(t)
+    fea = net.trunk_conv(t).add_(fea)
+    fea = act(net.upconv1(upsample2x_nearest(fea)))
+    fea = act(net.upconv2(upsample2x_nearest(fea)))
+    return net.conv_last(act(net.HRconv(fea)))
+
+
+def phase7g_rrdb_act(device, clock, card, rehearse):
+    """RRDBNet's convolution epilogue (``csrc/rrdb_act.cu``) against its
+    plain version and the forward before it, on the card.
+
+    (a) Every epilogue of one forward of a 1024² interim through the tamed
+    23-RRDB network: the kernel's output bitwise against the plain version
+    on the same bias-less convolution, and against the module's own
+    convolution (bias inside) composed with the ATen passes, each on the
+    inputs as they stood before the launch.  (b) Each form on planted NaN,
+    ±0 and ±inf at N = 1 and 3, odd planes, unaligned and sliced.  (c) Each
+    distinct epilogue of (a) timed from a cold L2 (device time by CUDA
+    events, :func:`_device_ms`, of the kernel into its buffer slice, and of
+    the plain version's kernels), beside its bound by bytes; summed over the forward's launches.
+    (d) The whole forward against the composition before the kernel
+    (:func:`rrdb_composition_before`) in the package's f32 (TF32 off), on
+    the channels-last input ``_sr_uint8`` gives: outputs bitwise equal,
+    device times (median of 3 by CUDA events), peak memory of each.  The
+    CPU rehearsal checks
+    (a) against the module composition only (the CPU adds a bias inside
+    its sums) and (b) not at all.
+
+    Returns the numbers of the kernels line.
+    """
+    import torch.nn.functional as F
+
+    from face_crop_plus_tpu_torch.models import enhancement as enh_mod
+    from face_crop_plus_tpu_torch.models.enhancement import RRDBNetwork
+    from face_crop_plus_tpu_torch.ops import nn as nn_ops
+    from face_crop_plus_tpu_torch.ops.cuda import rrdb_act as kern
+    from face_crop_plus_tpu_torch.utils.device import f32_precision
+
+    cuda = device.type == "cuda"
+    blocks, side = (1, 24) if rehearse else (23, 1024)
+    start_launches = kern.launches
+    net = RRDBNetwork(blocks)
+    net.load_state_dict(tamed_rrdb_state_dict(net))
+    net = net.to(device).eval().requires_grad_(False)
+    img = photo_like(np.random.default_rng(41), side, side)[None]
+    x_in = (torch.from_numpy(img).permute(0, 3, 1, 2).float() / 255.0).to(device)
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def plain_epilogue(y, bias, form, residual=None, outer=None, out=None):
+        """ATen's add of the bias after the convolution, then the plain passes."""
+        return nn_ops.rrdb_act_plain(y.add_(bias.reshape(1, -1, 1, 1)), form, residual, outer,
+                                     out)
+
+    # (a) every epilogue of one forward.
+    real = nn_ops.rrdb_conv
+    seen = []
+
+    def spy(x, conv, form="bias", residual=None, outer=None, out=None, channels_last=False):
+        # The references run each convolution in the layout the modules ran it.
+        xr = x.contiguous(memory_format=torch.channels_last) if channels_last else x
+        module = nn_ops.rrdb_act_plain(conv(xr), form, residual, outer)
+        plain = None
+        if cuda:
+            y = F.conv2d(xr, conv.weight, None, conv.stride, conv.padding)
+            plain = plain_epilogue(y, conv.bias, form, residual, outer)
+        got = real(x, conv, form, residual, outer, out, channels_last)
+        same = torch.equal(bits(got), bits(module)) and (
+            plain is None or torch.equal(bits(got), bits(plain)))
+        seen.append((tuple(got.shape), form, out is not None, same))
+        return got
+
+    with torch.no_grad(), f32_precision(), mock.patch.object(enh_mod, "rrdb_conv", spy):
+        net(x_in)
+    if cuda:
+        torch.cuda.synchronize()
+    bad = [s for s in seen if not s[-1]]
+    expected = 15 * blocks + 6
+    log(f"  (a) {len(seen)} epilogues of one {side}² forward ({blocks} RRDBs): "
+        f"{len(seen) - len(bad)} bitwise equal to the plain version"
+        + (" and to the module's convolution with its bias" if cuda else
+           " (rehearsal: to the module composition)"))
+    if bad or len(seen) != expected:
+        raise SystemExit(f"FAIL: rrdb_act != plain at {bad[:3]} ({len(seen)} epilogues, "
+                         f"{expected} expected)")
+
+    # (b) edge cases.
+    rng = np.random.default_rng(42)
+    cases = 0
+    for shape in ((1, 7, 9, 11), (3, 5, 1, 1), (3, 3, 67, 129), (1, 2, 1, 4099),
+                  (1, 32, 64, 64), (3, 32, 64, 64)):
+        for form, (_code, reads) in kern.FORMS.items():
+            for mode in ("in place", "slice", "unaligned"):
+                if not cuda:
+                    continue
+                n, c = shape[:2]
+                numel = int(np.prod(shape))
+                if mode == "unaligned":
+                    y = _special_planes(rng, (numel + 1,), device)[1:].view(shape)
+                else:
+                    y = _special_planes(rng, shape, device)
+                bias = _special_planes(rng, (c,), device)
+                res = [_special_planes(rng, (n, c + 3, *shape[2:]), device)[:, 1:1 + c]
+                       for _ in range(reads)] + [None] * (2 - reads)
+                want = plain_epilogue(y.clone(), bias, form, *res)
+                out = None
+                if mode == "slice":
+                    big = torch.full((n, c + 4, *shape[2:]), 7.0, device=device)
+                    out = big[:, 1:1 + c]
+                got = kern.rrdb_act_cuda(y, bias, form, *res, out=out)
+                torch.cuda.synchronize()
+                ok = torch.equal(bits(got), bits(want))
+                if mode == "slice":
+                    ok = ok and bool((big[:, :1] == 7).all()) and bool((big[:, 1 + c:] == 7).all())
+                if not ok:
+                    raise SystemExit(f"FAIL: rrdb_act kernel != plain at {shape} {form} {mode}")
+                cases += 1
+    log(f"  (b) {cases} edge cases (NaN, ±0, ±inf; N = 1 and 3, odd and tiny planes, "
+        "unaligned inputs, sliced residuals and outputs): bitwise equal")
+
+    # (c) each distinct epilogue timed.
+    configs = {}
+    for shape, form, sliced, _same in seen:
+        configs[shape, form, sliced] = configs.get((shape, form, sliced), 0) + 1
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for (shape, form, sliced), count in configs.items():
+        n, c = shape[:2]
+        reads = kern.FORMS[form][1]
+        y = torch.randn(shape, device=device)
+        bias = torch.randn(c, device=device)
+        res = [torch.randn((n, 192, *shape[2:]), device=device)[:, :c] for _ in range(reads)]
+        res += [None] * (2 - reads)
+        dst = torch.empty((n, 192 if sliced else c, *shape[2:]), device=device)[:, :c]
+
+        def fused(y=y, bias=bias, form=form, res=res, dst=dst):
+            if cuda:
+                kern.rrdb_act_cuda(y, bias, form, *res, out=dst)
+            else:
+                plain_epilogue(y.clone(), bias, form, *res, out=dst)
+
+        def plain(y=y, bias=bias, form=form, res=res, dst=dst):
+            plain_epilogue(y, bias, form, *res, out=dst)
+
+        ms = _device_ms(fused, clock, device)
+        plain_ms = _device_ms(plain, clock, device)
+        nbytes = 4 * y.numel() * (2 + reads)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append(dict(shape=list(shape), form=form, sliced=sliced, launches=count, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                         ("bytes", nbytes)):
+            tot[key] += count * val
+        log(f"  [{card}] {tuple(shape)} {form}{' into a slice' if sliced else ''} x{count}: "
+            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
+            f"({100 * bound_ms / ms:.2f} % of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+        del y, res, dst
+    log(f"  [{card}] (c) one forward's {len(seen)} epilogues: kernel {tot['ms']:.6f} ms, plain "
+        f"{tot['plain_ms']:.6f} ms, bound {tot['bound_ms']:.6f} ms ({tot['bytes']} B; "
+        f"{100 * tot['bound_ms'] / tot['ms']:.2f} % of the bound)")
+
+    # (d) the whole forward, after against before.
+    def timed(fn):
+        times, peak = [], 0
+        for _ in range(3):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            times.append(clock.ms(fn, reps=1, warmup=0))
+            if cuda:
+                peak = max(peak, torch.cuda.max_memory_allocated())
+        return float(np.median(times)), peak
+
+    with torch.no_grad(), f32_precision():
+        after = net(x_in)
+        before = rrdb_composition_before(net, x_in)
+        same = torch.equal(bits(after), bits(before))
+        del before, after
+        before_ms, before_peak = timed(lambda: rrdb_composition_before(net, x_in))
+        after_ms, after_peak = timed(lambda: net(x_in))
+    log(f"  [{card}] (d) {side}² forward ({blocks} RRDBs): after {after_ms:.6f} ms, before "
+        f"{before_ms:.6f} ms (medians of 3); peak {after_peak} B after, {before_peak} B before; "
+        f"outputs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("FAIL: the enhancer's forward != its composition before the kernel")
+    launches = kern.launches - start_launches
+    if cuda and launches == 0:
+        raise SystemExit("FAIL: the rrdb_act kernel did not launch")
+    return dict(tot, launches=launches, cases=cases, epilogues=len(seen),
+                forward_ms=after_ms, forward_before_ms=before_ms, peak=after_peak,
+                peak_before=before_peak, rows=rows, shape=f"1x{side}²")
 
 
 @contextlib.contextmanager
@@ -1986,6 +2220,7 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
     from face_crop_plus_tpu_torch.models.enhancement import RRDBNet, RRDBNetwork
     from face_crop_plus_tpu_torch.models.weights import save_npz, to_jax_params
     from face_crop_plus_tpu_torch.ops.cuda import nms as nms_kern
+    from face_crop_plus_tpu_torch.ops.cuda import rrdb_act as rrdb_kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
     from face_crop_plus_tpu_torch.ops.warp import to_uint8
     from face_crop_plus_tpu_torch.utils.device import f32_precision
@@ -1994,11 +2229,14 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
 
     t_phase = time.perf_counter()
     cuda = device.type == "cuda"
+    clock = Clock(device)
+    log("  (g) RRDBNet's convolution epilogue (rrdb_act) vs plain: every epilogue of one "
+        "forward, edge cases, times, the forward before and after")
+    rrdb_t = phase7g_rrdb_act(device, clock, card, rehearse)
     blocks = 1 if rehearse else 23
     n = batches[0].shape[0]
     out, resize = (32, 64) if rehearse else (256, 1024)
     gate_k = 2 if n > 2 else 1
-    clock = Clock(device)
 
     # (a) one image through the network on the card and on the CPU.
     side = 32 if rehearse else 128
@@ -2045,6 +2283,7 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
         torch.cuda.reset_peak_memory_stats()
     nms_kern.launches = 0
     warp_kern.launches = 0
+    rrdb_before = rrdb_kern.launches
     seconds = []
     for r in range(4):
         t0 = time.perf_counter()
@@ -2053,14 +2292,23 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
         if crops.shape != (n, out, out, 3) or not np.array_equal(indices, np.arange(n)):
             raise SystemExit(f"FAIL: enhanced request {r}: crops {crops.shape}, indices {indices}")
     launches = (nms_kern.launches, warp_kern.launches)
+    rrdb_launches = rrdb_kern.launches - rrdb_before
+    gated_rows = enhanced_rows[0]
+    # One epilogue launch a convolution: 15 a block, 6 more a forward, a
+    # forward a gated row (enh_batch_size 1).
+    rrdb_per_row = 15 * blocks + 6
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     if enhanced_rows[0] != 4 * gate_k or (not rehearse and min(launches) < 4):
         raise SystemExit(f"FAIL: {enhanced_rows[0]} rows enhanced over 4 requests, launches "
                          f"{launches}")
+    if cuda and rrdb_launches != gated_rows * rrdb_per_row:
+        raise SystemExit(f"FAIL: {rrdb_launches} rrdb_act launches over {gated_rows} "
+                         f"gated rows, {rrdb_per_row} a row expected")
     fps = 3 * n / sum(seconds[1:])
     log(f"  [{card}] (b) {fps:.6f} faces/s over 3 requests after one warm-up, {gate_k} of {n} "
         f"images gated; request seconds " + ", ".join(f"{s:.6f}" for s in seconds)
-        + f"; K1 launches {launches[0]}, warp launches {launches[1]}; peak device memory "
+        + f"; K1 launches {launches[0]}, warp launches {launches[1]}, rrdb_act launches "
+        f"{rrdb_launches} ({gated_rows} gated rows); peak device memory "
         f"{peak} B ({peak / 2**30:.6f} GiB)")
     timer = StageTimer(device)
     c._fused.stage_timer = timer
@@ -2077,7 +2325,7 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
     one = to_uint8(interim[gated[:1].tolist()]).contiguous()
     del interim
     ms = clock.ms(lambda: enh.enhance_device(one), reps=2, warmup=1)
-    macs = rrdb_macs_per_pixel(enh.net, device)
+    macs = rrdb_macs_per_pixel(enh.net)
     pixels = one.shape[1] * one.shape[2]
     flop = 2 * macs * pixels
     log(f"  [{card}] (b) enhance_device of one {one.shape[1]}x{one.shape[2]} interim: {ms:.6f} ms "
@@ -2252,7 +2500,8 @@ def phase7_enhancement(batches, p5, device, card, rehearse):
     wall = time.perf_counter() - t_phase
     log(f"  phase 7 wall time {wall:.3f} s")
     return dict(nms=launches[0], warp=launches[1], dir_nms=dir_launches[0],
-                dir_warp=dir_launches[1], fps=fps, wall=wall)
+                dir_warp=dir_launches[1], fps=fps, wall=wall, rrdb_act=rrdb_t,
+                rrdb_fused_gate=rrdb_launches, rrdb_gated_rows=gated_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -3911,7 +4160,7 @@ def phase12_compute_dtype(device, card, rehearse):
         log(f"  (c) RRDBNet(compute_dtype={dt}): {json.dumps(compute_precision(enh))}")
         if dt == f32:
             pixels = one.shape[1] * one.shape[2]
-            flop = 2 * rrdb_macs_per_pixel(enh.net, device) * pixels
+            flop = 2 * rrdb_macs_per_pixel(enh.net) * pixels
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4051,6 +4300,37 @@ def bn_act_row(t, launches_largest, launches) -> dict:
     }
 
 
+def rrdb_act_row(t, launches, p7) -> dict:
+    """The ``kernels`` entry of rrdb_act: one 1024² enhancer forward's 351
+    epilogues (phase 7 (g) (c)), the launches of every phase and of phase
+    7 (b)'s fused-gate requests (the main path)."""
+    return {
+        "name": "rrdb_act",
+        "route": "cuda",
+        "source": "face_crop_plus_tpu_torch/csrc/rrdb_act.cu",
+        "replaces": None,
+        "replaces_none_because": "XLA fuses the bias, LeakyReLU and the scaled residuals into "
+                                 "the convolutions and lays out the dense blocks' concatenation",
+        "launches": launches,
+        "launches_check": t["launches"],
+        "launches_fused_gate": p7["rrdb_fused_gate"],
+        "gated_rows_fused_gate": p7["rrdb_gated_rows"],
+        "max_abs_err": 0.0,
+        "bitwise_equal": True,
+        "edge_cases": t["cases"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "bytes": t["bytes"],
+        "library_ms": None,
+        "shape": f"the {t['epilogues']} epilogues of one {t['shape']} RRDBNet x4 forward, summed",
+        "forward_ms": t["forward_ms"],
+        "forward_before_ms": t["forward_before_ms"],
+        "cases": t["rows"],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -4078,6 +4358,7 @@ def main() -> int:
     from face_crop_plus_tpu_torch.ops.cuda import bn_act as bn_kern
     from face_crop_plus_tpu_torch.ops.cuda import build
     from face_crop_plus_tpu_torch.ops.cuda import nms as kern
+    from face_crop_plus_tpu_torch.ops.cuda import rrdb_act as rrdb_kern
     from face_crop_plus_tpu_torch.ops.cuda import warp as warp_kern
 
     # Cut phase 3b's timed requests, never its width, past this point.
@@ -4116,7 +4397,7 @@ def main() -> int:
         log("phase 1: build skipped (rehearsal: no nvcc)")
     else:
         t0 = time.perf_counter()
-        sources = ("nms.cu", "warp.cu", "bn_act.cu")
+        sources = ("nms.cu", "warp.cu", "bn_act.cu", "rrdb_act.cu")
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source at once
             list(pool.map(build.load_library, sources))
         log(f"phase 1: built csrc/{{{','.join(sources)}}} in parallel in "
@@ -4336,7 +4617,8 @@ def main() -> int:
     }, warp_row(wtimings, max(warp_err, chunk_err, p5["staged_err"]), warp_main_launches,
                all_warp, p5, p6, p7, p8, p9, p10, p11, p12),
         gather_row(gtimings, gather_launches),
-        bn_act_row(bn_t, bn_main_launches, bn_kern.launches)]}
+        bn_act_row(bn_t, bn_main_launches, bn_kern.launches),
+        rrdb_act_row(p7["rrdb_act"], rrdb_kern.launches, p7)]}
     log(json.dumps(kernels))
     if rehearse:
         log("rehearsal finished: every phase ran on the CPU; no ok line")

@@ -20,8 +20,19 @@ input is scaled to [0, 1] in f32 and cast, the trunk and the tail run in
 the compute dtype, and their 4x output goes to f32 before the bicubic
 x0.25, the clip and the rounding.  No function of this module
 reaches a Pallas kernel in the JAX package: the convolutions are cuDNN's,
-and the concatenations, activations, upsampling and the bicubic filter are
-stock torch ops.
+the upsampling and the bicubic filter stock torch ops.  Each convolution
+ends in :func:`..ops.nn.rrdb_conv`: its bias, then LeakyReLU or the
+0.2-scaled residuals: in float32 on a card one launch of a hand-written
+kernel (``csrc/rrdb_act.cu``) after cuDNN's convolution without its bias,
+elsewhere (the CPU, bfloat16) the ATen passes.  The trunk runs in three
+NCHW (N, 192, H, W) buffers allocated per forward: a dense block's growth
+convolutions write their 32 channels each into the slice after the ones
+they read (nothing is concatenated), and its fifth convolution writes the
+block's output into the next buffer's first 64 channels.  A channels-last
+input (``_sr_uint8``'s permute of NHWC rows) ran the trunk's convolutions
+channels-last before the buffers; each still runs so where NCHW would
+pick another algorithm (:func:`..ops.nn.nchw_agrees`: at some small sizes
+on a card), so the output keeps its bits on every device and layout.
 
 The JAX module's space-to-depth trunks and H-strip dense blocks are TPU
 layout strategies (128-lane tiles, 16 GB of HBM) and have no counterpart
@@ -47,10 +58,9 @@ from collections import defaultdict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops.nn import conv, downscale4x_bicubic, upsample2x_nearest
+from ..ops.nn import conv, downscale4x_bicubic, rrdb_conv, upsample2x_nearest
 from ..ops.warp import to_uint8
 from ..ops.yuv import packed_length, rgb_to_yuv420, yuv420_to_rgb
 from ..parallel.mesh import Replicas, shard_batch
@@ -67,7 +77,6 @@ from .weights import load_or_init
 _NF = 64  # trunk width
 _GC = 32  # dense growth channels
 _NUM_BLOCKS = 23
-_SLOPE = 0.2
 
 #: Seed of the random-init fallback (the JAX ``RRDBNet._init_fn``).
 _INIT_SEED = 2
@@ -76,10 +85,6 @@ _INIT_SEED = 2
 #: convolutions at 4x spoil 5 output rows (4x) next to a cut edge, less
 #: than 2 input rows (8 output rows).
 _TAIL_HALO = 2
-
-
-def _act(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, _SLOPE, inplace=True)
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +101,22 @@ class DenseBlock(nn.Module):
             out_ch = _NF if k == 5 else _GC
             setattr(self, f"conv{k}", conv(_NF + (k - 1) * _GC, out_ch, bias=True))
 
-    def forward(self, x):
-        c = x
+    def fill(self, buf: torch.Tensor, out: torch.Tensor, outer=None,
+             channels_last: bool = False) -> torch.Tensor:
+        """``conv5 · 0.2 + x`` over the dense activations of ``x``, or with
+        ``outer`` (the RRDB's input) that · 0.2 + ``outer``, in a (N, 192,
+        H, W) buffer whose channels ``[:64]`` hold ``x``: conv ``k`` (1-4)
+        reads the leading ``64 + 32(k-1)`` channels and writes its
+        activation into the next 32, where a concatenation would put it;
+        conv5 reads all 192 and writes the block's output into ``out``.
+        ``channels_last`` as :func:`..ops.nn.rrdb_conv` takes it."""
         for k in range(1, 5):
-            c = torch.cat([c, _act(getattr(self, f"conv{k}")(c))], dim=1)
-        return self.conv5(c).mul_(0.2).add_(x)
+            lo = _NF + (k - 1) * _GC
+            rrdb_conv(buf[:, :lo], getattr(self, f"conv{k}"), "leaky", out=buf[:, lo : lo + _GC],
+                      channels_last=channels_last)
+        form = "dense" if outer is None else "rrdb"
+        return rrdb_conv(buf, self.conv5, form, buf[:, :_NF], outer, out=out,
+                         channels_last=channels_last)
 
 
 class RRDB(nn.Module):
@@ -112,15 +128,25 @@ class RRDB(nn.Module):
         self.RDB2 = DenseBlock()
         self.RDB3 = DenseBlock()
 
-    def forward(self, x):
-        return self.RDB3(self.RDB2(self.RDB1(x))).mul_(0.2).add_(x)
+    def fill(self, bufs, channels_last: bool = False) -> torch.Tensor:
+        """``RDB3(RDB2(RDB1(x))) · 0.2 + x`` in three (N, 192, H, W)
+        buffers: the RRDB's input ``x`` in the first one's channels
+        ``[:64]``, where its output goes too; the other two carry the
+        second and third blocks' inputs."""
+        a, b, c = bufs
+        self.RDB1.fill(a, b[:, :_NF], channels_last=channels_last)
+        self.RDB2.fill(b, c[:, :_NF], channels_last=channels_last)
+        return self.RDB3.fill(c, a[:, :_NF], outer=a[:, :_NF], channels_last=channels_last)
 
 
 class RRDBNetwork(nn.Module):
     """The enhancer network: (N, 3, H, W) in [0, 1] → (N, 3, 4H, 4W).
 
     Counterpart of the JAX ``rrdbnet_forward`` (``_dense_block``,
-    ``_rrdb``, ``_tail``) with ``num_blocks`` RRDBs in the trunk.
+    ``_rrdb``, ``_tail``) with ``num_blocks`` RRDBs in the trunk.  Every
+    convolution ends in :func:`..ops.nn.rrdb_conv`, its epilogue; the
+    trunk runs in a rotation of three dense-block buffers allocated per
+    forward.
     """
 
     #: Input pixels above which the 4x tail runs in row strips: 1024² keeps
@@ -139,10 +165,23 @@ class RRDBNetwork(nn.Module):
 
     def _tail(self, fea: torch.Tensor) -> torch.Tensor:
         """x4 nearest-upsample conv stack; each input is freed once consumed."""
-        fea = _act(self.upconv1(upsample2x_nearest(fea)))
-        fea = _act(self.upconv2(upsample2x_nearest(fea)))
-        fea = _act(self.HRconv(fea))
-        return self.conv_last(fea)
+        fea = rrdb_conv(upsample2x_nearest(fea), self.upconv1, "leaky")
+        fea = rrdb_conv(upsample2x_nearest(fea), self.upconv2, "leaky")
+        fea = rrdb_conv(fea, self.HRconv, "leaky")
+        return rrdb_conv(fea, self.conv_last)
+
+    def _trunk(self, fea: torch.Tensor, channels_last: bool) -> torch.Tensor:
+        """``trunk_conv(RRDBs(fea)) + fea``, the RRDBs in three buffers
+        (:meth:`RRDB.fill`), ``fea`` copied once into the first, so every
+        RRDB reads and writes the same place.  ``channels_last``: the
+        network's input is, so its modules ran these convolutions so."""
+        n, _, h, w = fea.shape
+        bufs = [fea.new_empty((n, _NF + 4 * _GC, h, w)) for _ in range(3)]
+        bufs[0][:, :_NF].copy_(fea)
+        for block in self.RRDB_trunk:
+            block.fill(bufs, channels_last)
+        return rrdb_conv(bufs[0][:, :_NF], self.trunk_conv, "add", fea,
+                         channels_last=channels_last)
 
     def _tail_strips(self, fea: torch.Tensor) -> torch.Tensor:
         """:meth:`_tail` over row strips of ``fea`` with a :data:`_TAIL_HALO`.
@@ -171,8 +210,8 @@ class RRDBNetwork(nn.Module):
         return out
 
     def forward(self, x):
-        fea = self.conv_first(x)
-        fea = self.trunk_conv(self.RRDB_trunk(fea)).add_(fea)
+        channels_last = x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+        fea = self._trunk(rrdb_conv(x, self.conv_first), channels_last)
         if fea.shape[2] * fea.shape[3] > self.tail_max_pixels:
             return self._tail_strips(fea)
         return self._tail(fea)

@@ -22,7 +22,9 @@ bfloat16 when its caller asks) rounds where the JAX one rounds:
 
 * convolutions take their input, weights and bias in the activation dtype
   (the module's own, cast with the network) and accumulate in f32; the
-  bias rides in the convolution, as one code path on the CPU and the card;
+  bias rides in the convolution, but for RRDBNet's in float32 on a card,
+  whose bias the epilogue kernel adds (ATen adds it after cuDNN in a pass
+  of its own there, so the bits are the same);
 * folded BatchNorm multiplies and adds in the activation dtype;
 * the resize and bicubic matrices are cast to the activation dtype, every
   product accumulates in f32 and is rounded once to the activation dtype;
@@ -35,7 +37,14 @@ it computed before ``compute_dtype`` existed.
 :func:`bn_act` is a convolution's epilogue (folded BN, an optional
 residual, an optional ReLU): in float32 on a card one pass of a
 hand-written kernel with the plain composition's bits, else that
-composition (:func:`bn_act_plain`).
+composition (:func:`bn_act_plain`).  :func:`rrdb_conv` is the same for
+RRDBNet: a convolution, its bias, then LeakyReLU or the 0.2-scaled
+residuals, written into its final place (a channel slice of a dense
+block's buffer); in float32 on a card the convolution without its bias
+and one pass of a second kernel, else the module's convolution and
+:func:`rrdb_act_plain`.  Where the modules ran a convolution on a
+channels-last input and NCHW would pick another algorithm
+(:func:`nchw_agrees`), it runs channels-last still.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from torch import nn
 from ..utils.device import to_device
 from ..utils.profiling import count_in_span
 from .cuda.bn_act import bn_act_cuda
+from .cuda.rrdb_act import rrdb_act_cuda
 
 
 def conv(
@@ -141,6 +151,121 @@ def bn_act(
         return y
     y = bn_act_plain(x, bn, relu, residual, residual_bn, out)
     count_in_span("bn_act.plain", y.numel())
+    return y
+
+
+#: RRDBNet's LeakyReLU slope and its residuals' scale.
+RRDB_POINT2 = 0.2
+
+
+def rrdb_act_plain(
+    y: torch.Tensor,
+    form: str,
+    residual: torch.Tensor | None = None,
+    outer: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`rrdb_conv`'s epilogue as the modules composed it, over a
+    convolution's output ``y`` (its bias added) in place: the form (see
+    :func:`.cuda.rrdb_act.rrdb_act_cuda`) as the in-place LeakyReLU, each
+    ``mul_(0.2)`` and ``add_``; the result copied into ``out`` when one is
+    given."""
+    if form == "leaky":
+        y = F.leaky_relu(y, RRDB_POINT2, inplace=True)
+    elif form == "add":
+        y = y.add_(residual)
+    elif form in ("dense", "rrdb"):
+        y = y.mul_(RRDB_POINT2).add_(residual)
+        if form == "rrdb":
+            y = y.mul_(RRDB_POINT2).add_(outer)
+    elif form != "bias":
+        raise ValueError(f"unknown form {form!r}")
+    return y if out is None else out.copy_(y)
+
+
+def rrdb_fused(x: torch.Tensor) -> bool:
+    """Whether :func:`rrdb_conv` runs the epilogue kernel on ``x``: float32
+    on a card."""
+    return x.device.type == "cuda" and x.dtype == torch.float32
+
+
+#: Per convolution call (weight and input shapes, dtype, device, cuDNN's
+#: TF32 and determinism switches): whether an NCHW input gives the bits of
+#: a channels-last one.
+_NCHW_AGREES: dict = {}
+
+
+def nchw_agrees(x: torch.Tensor, conv: nn.Conv2d) -> bool:
+    """Whether :func:`rrdb_conv`'s convolution of ``x``'s shape gives the
+    same bits on an NCHW input as on a channels-last one.
+
+    cuDNN (and the CPU's library) choose an algorithm by the call's shape
+    and layout, and at some shapes choose another one for each layout: on
+    an H100, at 1024² and most sizes measured one implicit GEMM for both,
+    at some small ones (24×20, 32², 48×40, 200×150) an FFT for one
+    layout.  Seen once a call, on a seeded random input: the same
+    convolution on both layouts, compared bit for bit."""
+    key = (tuple(conv.weight.shape), tuple(x.shape), x.dtype, x.device,
+           torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    agrees = _NCHW_AGREES.get(key)
+    if agrees is None:
+        gen = torch.Generator(x.device).manual_seed(0)
+        z = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+        bias = None if rrdb_fused(x) else conv.bias
+        args = (conv.weight, bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+        nchw = F.conv2d(z, *args)
+        cl = F.conv2d(z.contiguous(memory_format=torch.channels_last), *args)
+        agrees = _NCHW_AGREES[key] = torch.equal(nchw, cl)
+    return agrees
+
+
+def rrdb_conv(
+    x: torch.Tensor,
+    conv: nn.Conv2d,
+    form: str = "bias",
+    residual: torch.Tensor | None = None,
+    outer: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+    channels_last: bool = False,
+) -> torch.Tensor:
+    """One of RRDBNet's convolutions and its epilogue, into ``out``.
+
+    ``form(conv(x))``: the bias, then nothing more, LeakyReLU 0.2, a
+    ``residual`` added, or the dense block's ``residual`` after a 0.2 scale
+    and, for ``"rrdb"``, the RRDB's ``outer`` after another (see
+    :func:`.cuda.rrdb_act.rrdb_act_cuda`).  A float32 ``x`` on a card runs
+    the convolution without its bias (cuDNN's same call; ATen would add the
+    bias in a pass of its own), its output made NCHW-contiguous (a copy
+    only where ``x`` is channels-last), and one launch of the hand-written
+    kernel, which adds the bias, applies the form and writes the result
+    into ``out``: the same bits as the module's convolution and the plain
+    passes.  Any other device or dtype calls the module, bias and all (the
+    CPU's convolutions add the bias inside their sums), and runs
+    :func:`rrdb_act_plain`.  ``out``, when given, receives the result: an
+    (N, C, H, W) tensor with contiguous planes, such as a channel slice of
+    a dense block's buffer, or ``outer`` itself.
+
+    ``channels_last`` says that the module composition ran this
+    convolution on a channels-last input (the trunk of a channels-last
+    network input): ``x`` is then copied to that layout first, unless
+    :func:`nchw_agrees`, so every result keeps the composition's bits.
+
+    While tracing, counts ``rrdb_act.fused`` or ``rrdb_act.plain`` (one call
+    a launch or composition, the output's elements as items) into the open
+    span's stats.
+    """
+    if channels_last and not nchw_agrees(x, conv):
+        x = x.contiguous(memory_format=torch.channels_last)
+    if rrdb_fused(x):
+        # cuDNN gets the module's call in x's own layout; the kernel reads
+        # NCHW planes.
+        y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation,
+                     conv.groups).contiguous()
+        y = rrdb_act_cuda(y, conv.bias, form, residual, outer, out)
+        count_in_span("rrdb_act.fused", y.numel())
+        return y
+    y = rrdb_act_plain(conv(x), form, residual, outer, out)
+    count_in_span("rrdb_act.plain", y.numel())
     return y
 
 
